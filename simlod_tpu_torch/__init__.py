@@ -1,0 +1,20 @@
+"""simlod_tpu_torch — the SimLOD point-cloud engine in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper.
+
+A port of `simlod_tpu` (JAX/XLA/Pallas) that keeps its module layout and names:
+stream .simlod files, build the LOD octree on the device (Morton-routed leaves
+split at 50k points, first-come voxels on a 128^3 grid in inner nodes) and render
+it (frustum + pixel-size LOD selection, depth-min splats with the u64 atomicMin
+tiebreak, high-quality shading, eye-dome lighting).
+
+Every function takes or derives an explicit `torch.device`. The package never
+imports jax; the JAX package stays the reference that the tests hold it against.
+The one TPU kernel of the reference (the Pallas tile rasterizer) is a CUDA kernel
+here (csrc/raster_tiles.cu, bound by render/raster_tiles.py); everything else is
+plain torch ops.
+"""
+
+__version__ = "0.1.0"
+
+from .config import EngineConfig, Settings, Stats, Uniforms  # noqa: F401
+from .octree.structures import OctreeState, init_state  # noqa: F401

@@ -1,0 +1,239 @@
+"""Typed configuration for the engine (port of simlod_tpu/config.py).
+
+  - EngineConfig : capacities and step sizing (same fields and defaults as the
+                   JAX package, so one config means the same octree in both)
+  - Settings     : interactive render/LOD knobs (mirrors the reference `settings`)
+  - Uniforms     : per-frame values as tensors on the device
+  - Stats        : engine counters (mirrors HostDeviceInterface.h:46-71)
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+from . import constants as C
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Capacities and window sizes. The windows decide what a step truncates
+    (and flags), so they keep the JAX package's meaning exactly."""
+
+    # Octree capacities
+    node_capacity: int = 1 << 20
+    point_capacity: int = 64 << 20
+    voxel_capacity: int = 64 << 20
+    segment_capacity: int = 1 << 22
+
+    # Per-step sizing
+    step_points: int = 2 << 20
+    spill_capacity: int = 4 << 20
+    max_splits_per_round: int = 1024
+    cascade_splits_per_round: int = 256
+    seg_select_cap: int = 4096
+    seg_scan_window: int = 1 << 18
+    run_window: int = 1 << 17
+    boundary_window: int = 1 << 17
+    split_rounds: int = 24
+    steps_per_dispatch: int = 4
+    max_batches_per_frame: int = 20
+
+    # Octree parameters (reference structures.cuh:21-26)
+    max_points_per_node: int = C.MAX_POINTS_PER_NODE
+    max_depth: int = C.MAX_DEPTH
+
+    # Rasterizer: tile-binned sort + tile-resolve kernel (render/raster_tiles.py)
+    # when set, else the scatter path (render/raster.py).
+    use_tile_raster: bool = True
+    # True: the pixel sort breaks (pixel, depth) ties by colour, reproducing the
+    # reference's u64 atomicMin winner exactly (render.cu:95-99).
+    raster_exact_tiebreak: bool = True
+
+    # Draw-pool row cap (render/drawpool.py in the JAX package; kept for config
+    # compatibility until the pooled render is ported).
+    draw_cap: int = 1 << 18
+
+    # Render capacities
+    max_render_points: int = 8 << 20
+    max_render_voxels: int = 8 << 20
+    max_render_lines: int = 1 << 16
+    line_steps: int = 128
+    max_point_size: int = 1
+
+    # Kept for config compatibility (sizes nothing).
+    candidate_factor: int = 3
+    # Rows of the batch allowed to emit candidates at multiple levels per step
+    # (build.batch_voxel_candidates); 0 = auto (batch/4).
+    cand_multi_rows: int = 1 << 18
+
+    # Voxel-store dedup compaction trigger (fraction of voxel_capacity).
+    voxel_compact_watermark: float = 0.6
+
+    @property
+    def working_capacity(self) -> int:
+        return self.step_points + self.spill_capacity + self.boundary_window
+
+    def estimated_state_bytes(self) -> int:
+        """Device bytes of the OctreeState this config allocates
+        (structures.init_state)."""
+        from .octree.structures import _cand_capacity
+        pt = (self.point_capacity + self.working_capacity) * 16
+        vx = (self.voxel_capacity + _cand_capacity(self)) * 20
+        nd = self.node_capacity * 4 * (15 + C.MAX_DEPTH + 1)
+        sg = self.segment_capacity * 12
+        return pt + vx + nd + sg
+
+    @classmethod
+    def auto(cls, total_points: int | None = None, device=None,
+             memory_bytes: int | None = None, **overrides) -> "EngineConfig":
+        """Derive pool capacities from device memory and the dataset size
+        (same policy as the JAX package: the state stays under ~45% of the
+        device's free memory; the rest is working space for sorts)."""
+        budget = memory_bytes
+        if budget is None:
+            budget = _device_memory_bytes(device)
+        state_budget = int(budget * 0.45)
+        if total_points is None:
+            total_points = max(state_budget // 36, 1 << 22)
+        n = int(total_points)
+
+        def bucket(v: int) -> int:   # 1-8-pow2 (<= 12.5% pad steps)
+            v = max(v, 1024)
+            b = max((v - 1).bit_length() - 3, 0)
+            return ((v + (1 << b) - 1) >> b) << b
+
+        kw: dict = dict(
+            step_points=2 << 20,
+            spill_capacity=1 << 20,
+            seg_select_cap=2048,
+            node_capacity=(1 << 19) if n >= 16_000_000 else (1 << 17),
+            segment_capacity=min(max(bucket(n // 32), 1 << 16), 1 << 22),
+            point_capacity=n + (1 << 20),
+            voxel_capacity=max(bucket(n), 1 << 22),
+            max_render_points=4 << 20,
+            max_render_voxels=4 << 20,
+        )
+        kw.update(overrides)
+        cfg = cls(**kw)
+        while cfg.estimated_state_bytes() > state_budget \
+                and cfg.point_capacity > (1 << 22):
+            kw["point_capacity"] = max(kw["point_capacity"] // 2, 1 << 22)
+            kw["voxel_capacity"] = max(kw["voxel_capacity"] // 2, 1 << 22)
+            kw.update(overrides)
+            cfg = cls(**kw)
+        return cfg
+
+
+def _device_memory_bytes(device=None) -> int:
+    """Free memory of a CUDA device, or half of physical RAM for the CPU."""
+    device = torch.device(device if device is not None else "cpu")
+    if device.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(device)
+        return int(free)
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 2
+
+
+@dataclasses.dataclass
+class Settings:
+    """Interactive knobs (reference: main_progressive_octree.cpp:123-139)."""
+
+    use_high_quality_shading: bool = True
+    show_bounding_box: bool = False
+    do_update_visibility: bool = True
+    show_points: bool = True
+    color_by_node: bool = False
+    color_by_lod: bool = False
+    color_white: bool = False
+    auto_focus_on_load: bool = True
+    benchmark_rendering: bool = False
+    lod: float = 0.2
+    min_node_size: float = 64.0
+    point_size: int = 1
+    fovy: float = 60.0
+    frame_budget_ms: float = 50.0
+    enable_edl: bool = True
+    edl_strength: float = 0.4
+    # samples per covered pixel per node for the draw pool; 0 = exact render
+    # (the only mode this package renders so far)
+    point_budget: float = 0.0
+
+
+@dataclasses.dataclass
+class Uniforms:
+    """Per-frame values on the device (reference: HostDeviceInterface.h:10-44).
+
+    Matrices are row-major [4,4] float32 acting on column vectors, exactly like the
+    reference's `uniforms.transform * float4`."""
+
+    width: torch.Tensor                   # f32 scalar
+    height: torch.Tensor                  # f32 scalar
+    transform: torch.Tensor               # [4,4] f32: proj @ view @ world
+    transform_update_bound: torch.Tensor  # frozen copy while !doUpdateVisibility
+    show_bounding_box: torch.Tensor       # bool
+    show_points: torch.Tensor             # bool
+    color_by_node: torch.Tensor           # bool
+    color_by_lod: torch.Tensor            # bool
+    color_white: torch.Tensor             # bool
+    use_high_quality_shading: torch.Tensor  # bool
+    lod: torch.Tensor                     # f32
+    min_node_size: torch.Tensor           # f32
+    point_size: torch.Tensor              # i32
+    enable_edl: torch.Tensor              # bool
+    edl_strength: torch.Tensor            # f32
+    point_budget: torch.Tensor            # f32
+
+    @staticmethod
+    def make(width: int, height: int, transform, transform_update_bound=None,
+             settings: Settings | None = None, device=None) -> "Uniforms":
+        s = settings or Settings()
+        device = torch.device(device if device is not None else "cpu")
+        transform = torch.as_tensor(transform, dtype=torch.float32).to(device)
+        if transform_update_bound is None:
+            transform_update_bound = transform
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+        b = lambda v: torch.tensor(bool(v), dtype=torch.bool, device=device)
+        return Uniforms(
+            width=f32(width), height=f32(height),
+            transform=transform,
+            transform_update_bound=torch.as_tensor(
+                transform_update_bound, dtype=torch.float32).to(device),
+            show_bounding_box=b(s.show_bounding_box),
+            show_points=b(s.show_points),
+            color_by_node=b(s.color_by_node),
+            color_by_lod=b(s.color_by_lod),
+            color_white=b(s.color_white),
+            use_high_quality_shading=b(s.use_high_quality_shading),
+            lod=f32(s.lod), min_node_size=f32(s.min_node_size),
+            point_size=torch.tensor(s.point_size, dtype=torch.int32,
+                                    device=device),
+            enable_edl=b(s.enable_edl), edl_strength=f32(s.edl_strength),
+            point_budget=f32(s.point_budget),
+        )
+
+
+@dataclasses.dataclass
+class Stats:
+    """Engine counters (reference: HostDeviceInterface.h:46-71), as 0-d tensors
+    or Python values once read back."""
+
+    num_nodes: object
+    num_inner: object
+    num_leaves: object
+    num_nonempty_leaves: object
+    num_points: object
+    num_voxels: object                    # logical voxel count (sum over nodes)
+    num_voxels_stored: object             # store entries incl. lazy duplicates
+    num_visible_nodes: object
+    num_visible_inner: object
+    num_visible_leaves: object
+    num_visible_points: object
+    num_visible_voxels: object
+    num_points_processed: object
+    num_points_dropped: object            # overflow guard drops
+    num_candidates_dropped: object        # transient voxel-candidate overflows
+    pool_used: object
+    num_segments: object
+    mem_capacity_reached: object          # bool (reference: voxels.cu:896-912)
+    render_truncated: object              # bool: last frame dropped samples

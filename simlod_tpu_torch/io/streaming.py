@@ -1,0 +1,314 @@
+"""Host streaming pipeline (port of simlod_tpu/io/streaming.py, .simlod files):
+files -> loader threads -> pinned host staging planes -> async H2D copies.
+
+  - loader threads decode 1M-point file batches (numpy memmap) into column arrays;
+  - one uploader thread packs them, in file order, into [K, B] step planes in
+    pinned (page-locked) host memory and copies each plane set to the device with
+    non_blocking copies on a side CUDA stream, recording an event; the consumer's
+    stream waits on that event before it reads the planes (the reference's
+    uploader thread + cuMemcpyHtoDAsync ring, main_progressive_octree.cpp:963-1063);
+  - backpressure: at most `ring_slots` plane sets are in flight ahead of the
+    consumer.
+
+On a CPU device the planes are plain tensors and nothing is pinned or async.
+All files share one union box; coordinates are translated by -union_min.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..formats import simlod
+
+BATCH_POINTS = 1_000_000   # loader batch granularity (reference MAX_BATCH_SIZE)
+
+
+@dataclasses.dataclass
+class FileEntry:
+    path: str
+    kind: str                # "simlod"
+    num_points: int
+    box_min: np.ndarray      # original coords
+    box_max: np.ndarray
+    header: object = None
+
+
+@dataclasses.dataclass
+class BatchRef:
+    seq: int
+    entry: FileEntry
+    first: int
+    count: int
+
+
+def scan_paths(paths) -> list[FileEntry]:
+    """File entries for the given files / directories (.simlod only so far)."""
+    files = []
+    for p in paths:
+        if os.path.isdir(p):
+            files.extend(os.path.join(p, n) for n in sorted(os.listdir(p)))
+        else:
+            files.append(p)
+    entries = []
+    for f in files:
+        low = f.lower()
+        if low.endswith(".simlod"):
+            info = simlod.load_info(f)
+            entries.append(FileEntry(f, "simlod", info.num_points,
+                                     info.box_min.astype(np.float64),
+                                     info.box_max.astype(np.float64), info))
+        elif low.endswith((".las", ".laz")):
+            raise NotImplementedError(f"{f}: LAS/LAZ input is not ported yet")
+    return entries
+
+
+class PointStream:
+    """Threaded reader yielding device step batches.
+
+    Iterating yields (x, y, z, rgba, counts): [K, B] tensors on `device` (rgba as
+    int32 bit patterns) and a numpy int32 [K] of valid rows per step. The
+    tensors are ready to use on the consumer's current stream."""
+
+    def __init__(self, paths, step_points: int, device=None,
+                 num_loaders: int | None = None, ring_slots: int = 4,
+                 batch_points: int = BATCH_POINTS, chunk_steps: int = 1):
+        self.entries = scan_paths(paths)
+        if not self.entries:
+            raise FileNotFoundError(f"no point cloud files under {paths!r}")
+        self.device = torch.device(device if device is not None else "cpu")
+        self.step_points = step_points
+        self.chunk_steps = max(1, chunk_steps)
+        self.box_min = np.min([e.box_min for e in self.entries], axis=0)
+        self.box_max = np.max([e.box_max for e in self.entries], axis=0)
+        self.total_points = sum(e.num_points for e in self.entries)
+
+        self._batches = collections.deque()
+        for e in self.entries:
+            for first in range(0, e.num_points, batch_points):
+                self._batches.append(BatchRef(
+                    len(self._batches), e, first,
+                    min(batch_points, e.num_points - first)))
+        self._n_batches = len(self._batches)
+        self._batch_lock = threading.Lock()
+
+        n_loaders = num_loaders or max(1, min(4, os.cpu_count() or 1))
+        self._loaded: queue.Queue = queue.Queue(maxsize=max(4, n_loaders * 2))
+        self._ready: queue.Queue = queue.Queue(maxsize=ring_slots)
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
+            self._side = torch.cuda.Stream(self.device)
+            # pinned plane sets, recycled once their copy has completed
+            self._free: queue.Queue = queue.Queue()
+            for _ in range(ring_slots + 1):
+                self._free.put(self._new_planes(pin=True))
+        self._stop = threading.Event()
+        self._error: BaseException | None = None
+        self._stats_lock = threading.Lock()
+        self.bytes_read = 0
+        self.points_loaded = 0
+        self.t_decode = 0.0     # loaders: file read + column decode
+        self.t_copy = 0.0       # uploader: staging-plane fills
+        self.t_put = 0.0        # uploader: H2D issue
+        self.t_start = time.perf_counter()
+
+        self._loaders = [threading.Thread(target=self._guard(self._loader),
+                                          daemon=True)
+                         for _ in range(n_loaders)]
+        self._uploader = threading.Thread(target=self._guard(self._upload),
+                                          daemon=True)
+        self._n_active = n_loaders
+        self._active_lock = threading.Lock()
+        for t in self._loaders:
+            t.start()
+        self._uploader.start()
+
+    def _new_planes(self, pin: bool):
+        K, B = self.chunk_steps, self.step_points
+        mk = lambda dt: torch.empty((K, B), dtype=dt, pin_memory=pin)
+        return (mk(torch.float32), mk(torch.float32), mk(torch.float32),
+                mk(torch.int32))
+
+    def _guard(self, fn):
+        """Run a pipeline thread; an exception stops the stream and is raised
+        again to the consumer."""
+        def run():
+            try:
+                fn()
+            except BaseException as e:   # re-raised in __iter__
+                self._error = e
+                self._stop.set()
+        return run
+
+    # --- loader threads ---
+    def _loader(self):
+        translation = -self.box_min
+        while not self._stop.is_set():
+            with self._batch_lock:
+                if not self._batches:
+                    break
+                ref = self._batches.popleft()
+            t0 = time.perf_counter()
+            e = ref.entry
+            shift = (e.box_min + translation).astype(np.float32)
+            xyz, rgba = simlod.read_points(e.path, ref.first, ref.count)
+            cols = (xyz[:, 0] + shift[0], xyz[:, 1] + shift[1],
+                    xyz[:, 2] + shift[2], rgba.view(np.int32))
+            with self._stats_lock:
+                self.t_decode += time.perf_counter() - t0
+                self.points_loaded += ref.count
+                self.bytes_read += ref.count * simlod.POINT_BYTES
+            if not self._put(self._loaded, (ref.seq, cols)):
+                break
+        with self._active_lock:
+            self._n_active -= 1
+            if self._n_active == 0:
+                self._put(self._loaded, None)
+
+    def _put(self, q: queue.Queue, item) -> bool:
+        """Backpressured put that gives up once the stream is stopped."""
+        while not self._stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    # --- uploader thread ---
+    def _upload(self):
+        K, B = self.chunk_steps, self.step_points
+        inflight = collections.deque()     # (event, pinned planes)
+        planes = self._free.get() if self._cuda else self._new_planes(False)
+        counts = np.zeros(K, np.int32)
+        step = fill = 0
+
+        def recycle_one():
+            ev, pset = inflight.popleft()
+            ev.synchronize()
+            self._free.put(pset)
+
+        def flush():
+            nonlocal planes, counts, step, fill
+            if fill > 0:
+                for p in planes:
+                    p[step, fill:] = 0
+                counts[step] = fill
+                step, fill = step + 1, 0
+            if step == 0:
+                return
+            for p in planes:
+                p[step:] = 0
+            t0 = time.perf_counter()
+            if self._cuda:
+                with torch.cuda.stream(self._side):
+                    dev = tuple(p.to(self.device, non_blocking=True)
+                                for p in planes)
+                    ev = torch.cuda.Event()
+                    ev.record(self._side)
+                inflight.append((ev, planes))
+                item = (dev, ev, counts.copy())
+            else:
+                item = (planes, None, counts.copy())
+            self.t_put += time.perf_counter() - t0
+            if not self._put(self._ready, item):
+                return
+            counts = np.zeros(K, np.int32)
+            step = 0
+            if self._cuda:
+                while self._free.empty() and inflight:
+                    recycle_one()
+                planes = self._free.get()
+            else:
+                planes = self._new_planes(False)
+
+        def consume(cols, n):
+            nonlocal step, fill
+            t0 = time.perf_counter()
+            off = 0
+            while off < n:
+                take = min(B - fill, n - off)
+                for p, c in zip(planes, cols):
+                    p[step, fill:fill + take] = torch.from_numpy(
+                        np.ascontiguousarray(c[off:off + take]))
+                fill += take
+                off += take
+                if fill == B:
+                    counts[step] = B
+                    step, fill = step + 1, 0
+                    if step == K:
+                        self.t_copy += time.perf_counter() - t0
+                        flush()
+                        t0 = time.perf_counter()
+            self.t_copy += time.perf_counter() - t0
+
+        # batches arrive from several loaders; pack them in file order
+        pending, nxt = {}, 0
+        while not self._stop.is_set():
+            try:
+                item = self._loaded.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            if item is None:
+                break
+            pending[item[0]] = item[1]
+            while nxt in pending:
+                cols = pending.pop(nxt)
+                consume(cols, len(cols[0]))
+                nxt += 1
+        if not self._stop.is_set():
+            if nxt != self._n_batches:
+                raise RuntimeError(f"stream lost batches ({nxt} of "
+                                   f"{self._n_batches})")
+            flush()
+        while inflight:
+            recycle_one()
+        self._put(self._ready, None)
+
+    # --- consumer side ---
+    def __iter__(self):
+        while True:
+            try:
+                item = self._ready.get(timeout=0.1)
+            except queue.Empty:
+                if self._error is not None:
+                    raise RuntimeError("point stream failed") from self._error
+                continue
+            if item is None:
+                if self._error is not None:
+                    raise RuntimeError("point stream failed") from self._error
+                return
+            (x, y, z, rgba), ev, counts = item
+            if ev is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(ev)
+                for t in (x, y, z, rgba):
+                    t.record_stream(cur)
+            yield x, y, z, rgba, counts
+
+    def stop(self):
+        """Stop and join the pipeline threads."""
+        self._stop.set()
+        for q in (self._loaded, self._ready):
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+        for t in self._loaders:
+            t.join(timeout=2.0)
+        self._uploader.join(timeout=2.0)
+
+    def stats(self):
+        dt = time.perf_counter() - self.t_start
+        return dict(points_loaded=self.points_loaded, bytes_read=self.bytes_read,
+                    seconds=dt,
+                    mps=self.points_loaded / dt / 1e6 if dt > 0 else 0.0,
+                    t_decode=round(self.t_decode, 3),
+                    t_copy=round(self.t_copy, 3), t_put=round(self.t_put, 3))

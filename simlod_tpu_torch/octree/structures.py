@@ -1,0 +1,171 @@
+"""Octree device data model: dense capacity-padded tensors with watermark counters
+(port of simlod_tpu/octree/structures.py; see there for the design).
+
+  - node pool: int32 columns indexed by node id; children are a contiguous block of
+    8 (`child_base`), `anc` is the flat [node_capacity * (MAX_DEPTH+1)] ancestor table;
+  - point pool: the three 28-bit-per-axis Morton words + rgba per point, addressed
+    by segments (node, offset, count);
+  - leaf-boundary directory: sorted Morton interval starts of the live leaves;
+  - voxel store: global prefix keys (k0, k1, k2|level) + node + rgba, lazily
+    deduplicated by compaction.
+
+Unsigned 32-bit words (rgba) are carried as int32 bit patterns: torch has no
+`>>` or scatter-min for uint32. Scalars are 0-d tensors on the state's device.
+The builder updates the state in place where that saves a copy of a pool.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..config import EngineConfig
+
+# fields that hold u32 words in the JAX package (int32 bit patterns here)
+U32_FIELDS = ("pt_rgba", "vox_rgba")
+
+
+@dataclasses.dataclass
+class OctreeState:
+    """The complete device-resident engine state."""
+
+    # --- node pool ([node_capacity] int32) ---
+    child_base: torch.Tensor    # id of first of 8 children, or -1 if leaf
+    parent: torch.Tensor        # -1 for root
+    level: torch.Tensor
+    nx: torch.Tensor            # node coords at its level
+    ny: torch.Tensor
+    nz: torch.Tensor
+    counter: torch.Tensor       # points ever routed while leaf
+    num_points: torch.Tensor    # points stored (leaves)
+    num_voxels: torch.Tensor    # voxels attributed (exact after compaction)
+    node_seg_count: torch.Tensor  # live segments owned by the node
+    anc: torch.Tensor           # [node_capacity * (MAX_DEPTH+1)] ancestor table
+    num_nodes: torch.Tensor     # scalar watermark
+
+    # --- point pool ---
+    pt_w0: torch.Tensor         # Morton word 0
+    pt_w1: torch.Tensor         # word 1
+    pt_w2: torch.Tensor         # word 2
+    pt_rgba: torch.Tensor       # u32 bit pattern
+    pool_used: torch.Tensor     # scalar watermark
+    pool_waste: torch.Tensor    # scalar: junk rows appended between segments
+
+    # --- leaf-boundary directory ([node_capacity]) ---
+    b_key0: torch.Tensor
+    b_key1: torch.Tensor
+    b_pack: torch.Tensor        # leaf_id * 32 + level
+    num_boundaries: torch.Tensor
+
+    # --- segment directory ([segment_capacity]) ---
+    seg_node: torch.Tensor      # -1 = never used
+    seg_off: torch.Tensor
+    seg_cnt: torch.Tensor       # 0 = dead
+    num_segments: torch.Tensor
+
+    # --- voxel store ---
+    vox_k0: torch.Tensor
+    vox_k1: torch.Tensor
+    vox_k2l: torch.Tensor
+    vox_node: torch.Tensor      # emitting leaf (tail) / resolved node (compacted)
+    vox_rgba: torch.Tensor      # u32 bit pattern
+    vox_used: torch.Tensor
+    vox_compacted: torch.Tensor
+    vox_voff: torch.Tensor      # [node_capacity]
+    vox_vcnt: torch.Tensor      # [node_capacity]
+
+    # --- octree domain ---
+    box_min: torch.Tensor       # f32 [3]
+    cube_size: torch.Tensor     # f32 scalar
+
+    # --- bookkeeping ---
+    num_points_processed: torch.Tensor
+    num_points_dropped: torch.Tensor
+    num_candidates_dropped: torch.Tensor
+    mem_capacity_reached: torch.Tensor  # bool
+
+    @property
+    def device(self) -> torch.device:
+        return self.child_base.device
+
+
+def init_state(cfg: EngineConfig, box_min, box_max, device=None) -> OctreeState:
+    """Create the initial single-root state (the reference's reset.cu kernel).
+
+    The octree domain is the cube with edge max(extent) anchored at box_min."""
+    device = torch.device(device if device is not None else "cpu")
+    n_cap = cfg.node_capacity
+    rnd = lambda v, m: ((v + m - 1) // m) * m
+    p_cap = rnd(cfg.point_capacity + cfg.working_capacity, 128)
+    v_cap = rnd(cfg.voxel_capacity + _cand_capacity(cfg), 128)
+
+    box_min = torch.as_tensor(np.asarray(box_min, np.float32)).to(device)
+    box_max = torch.as_tensor(np.asarray(box_max, np.float32)).to(device)
+    cube_size = torch.max(box_max - box_min)
+
+    i32 = torch.int32
+    zeros = lambda n: torch.zeros((n,), dtype=i32, device=device)
+    neg = lambda n: torch.full((n,), -1, dtype=i32, device=device)
+    scalar = lambda v: torch.tensor(v, dtype=i32, device=device)
+
+    return OctreeState(
+        child_base=neg(n_cap), parent=neg(n_cap), level=zeros(n_cap),
+        nx=zeros(n_cap), ny=zeros(n_cap), nz=zeros(n_cap),
+        counter=zeros(n_cap), num_points=zeros(n_cap), num_voxels=zeros(n_cap),
+        node_seg_count=zeros(n_cap),
+        anc=zeros(n_cap * (C.MAX_DEPTH + 1)),
+        num_nodes=scalar(1),
+        b_key0=zeros(n_cap), b_key1=zeros(n_cap), b_pack=zeros(n_cap),
+        num_boundaries=scalar(1),   # the root leaf (keys 0,0; pack 0)
+        pt_w0=zeros(p_cap), pt_w1=zeros(p_cap), pt_w2=zeros(p_cap),
+        pt_rgba=zeros(p_cap),
+        pool_used=scalar(0), pool_waste=scalar(0),
+        seg_node=neg(cfg.segment_capacity),
+        seg_off=zeros(cfg.segment_capacity),
+        seg_cnt=zeros(cfg.segment_capacity),
+        num_segments=scalar(0),
+        vox_k0=zeros(v_cap), vox_k1=zeros(v_cap), vox_k2l=zeros(v_cap),
+        vox_node=zeros(v_cap), vox_rgba=zeros(v_cap),
+        vox_used=scalar(0), vox_compacted=scalar(0),
+        vox_voff=zeros(n_cap), vox_vcnt=zeros(n_cap),
+        box_min=box_min, cube_size=cube_size,
+        num_points_processed=scalar(0), num_points_dropped=scalar(0),
+        num_candidates_dropped=scalar(0),
+        mem_capacity_reached=torch.tensor(False, device=device),
+    )
+
+
+def _cand_capacity(cfg: EngineConfig) -> int:
+    """Voxel-store physical padding: covers the largest single append window so
+    the watermark writes in build stay in bounds (vox_used never exceeds
+    cfg.voxel_capacity)."""
+    from ..ops import ragged
+    spill_window = ragged.window_for(cfg.spill_capacity, cfg.seg_select_cap)
+    work_width = cfg.step_points + min(cfg.boundary_window, cfg.node_capacity)
+    cand_width = work_width + spill_window
+    return max(cand_width, spill_window) + 256
+
+
+def state_to_numpy(state: OctreeState) -> dict:
+    """Host copy of every field, with the JAX package's dtypes (u32 words as
+    uint32), so a dict from either package's state has the same layout."""
+    out = {}
+    for f in dataclasses.fields(OctreeState):
+        a = getattr(state, f.name).detach().cpu().numpy()
+        out[f.name] = (a.view(np.uint32) if f.name in U32_FIELDS else a).copy()
+    return out
+
+
+def state_from_numpy(d: dict, device=None) -> OctreeState:
+    """Inverse of state_to_numpy; also takes `{field: np.asarray(jax_field)}` of a
+    state the JAX package built."""
+    device = torch.device(device if device is not None else "cpu")
+    kw = {}
+    for f in dataclasses.fields(OctreeState):
+        a = np.asarray(d[f.name])
+        if f.name in U32_FIELDS:
+            a = a.astype(np.uint32, copy=False).view(np.int32)
+        kw[f.name] = torch.from_numpy(np.array(a, copy=True)).to(device)
+    return OctreeState(**kw)

@@ -1,0 +1,150 @@
+"""Segment / scan / compaction primitives (port of simlod_tpu/ops/segments.py).
+
+Conventions: index arrays are int32; torch's cumsum of int32 promotes to int64, so
+every cumsum here names its dtype. Compaction is a stable partition computed from
+prefix sums (a scatter of a permutation), never a boolean index: a boolean index
+would make the host wait for the device to learn the output length.
+"""
+from __future__ import annotations
+
+import torch
+
+I32_MAX = torch.iinfo(torch.int32).max
+I32_MIN = torch.iinfo(torch.int32).min
+
+
+def iota(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def cumsum32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sum (wraps like the JAX package's int32 cumsum)."""
+    return torch.cumsum(x, 0, dtype=torch.int32)
+
+
+def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return cumsum32(x) - x
+
+
+def roll1(x: torch.Tensor) -> torch.Tensor:
+    """jnp.roll(x, 1): row i holds x[i-1], row 0 holds x[-1]."""
+    return torch.roll(x, 1, 0)
+
+
+def take_last(markers: torch.Tensor, sentinel: int = -1) -> torch.Tensor:
+    """Each row receives the most recent non-sentinel value at or before it
+    (sentinel before the first). The k-th marker lands in slot k of a small
+    table and every row reads the slot of its running marker count: a prefix
+    sum, a scatter and a gather (the JAX package uses a log-shift scan, a TPU
+    compile-time workaround; torch's cummax also computes indices and is an
+    order of magnitude slower on CUDA)."""
+    n = markers.shape[0]
+    marked = markers != sentinel
+    c = cumsum32(marked.to(torch.int32))
+    table = torch.full((n + 1,), sentinel, dtype=markers.dtype,
+                       device=markers.device)
+    # unmarked rows write the sentinel into slot 0, marked rows their own slot
+    table.scatter_(0, torch.where(marked, c, 0).long(), markers)
+    return table[c.long()]
+
+
+def partition_perm(mask: torch.Tensor):
+    """Stable partition permutation: perm lists the True rows in order, then the
+    False rows in order. Returns (perm int64, n_true 0-d int32)."""
+    n = mask.shape[0]
+    m = mask.to(torch.int32)
+    n_true = m.sum(dtype=torch.int32)
+    before_t = exclusive_cumsum(m)
+    rows = iota(n, mask.device)
+    dest = torch.where(mask, before_t, n_true + (rows - before_t))
+    perm = torch.empty(n, dtype=torch.int64, device=mask.device)
+    perm[dest.long()] = rows.long()
+    return perm, n_true
+
+
+def compact_mask_via_sort(mask: torch.Tensor, payloads):
+    """Stably move rows where mask is True to the front; (payloads', count)."""
+    perm, n_true = partition_perm(mask)
+    return tuple(p[perm] for p in payloads), n_true
+
+
+def compact_indices(mask: torch.Tensor):
+    """Row indices of True rows, front-compacted ascending, INT32_MAX after them;
+    (idx int32, count)."""
+    perm, n_true = partition_perm(mask)
+    n = mask.shape[0]
+    idx = torch.where(iota(n, mask.device) < n_true, perm.to(torch.int32),
+                      torch.full((n,), I32_MAX, dtype=torch.int32,
+                                 device=mask.device))
+    return idx, n_true
+
+
+def pack2(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Order-preserving int64 key for the lexicographic int32 pair (hi, lo)."""
+    return (hi.to(torch.int64) << 32) + (lo.to(torch.int64) - I32_MIN)
+
+
+def lexsort(keys) -> torch.Tensor:
+    """Stable lexicographic sort permutation (int64) over int32 key columns,
+    most significant first: ceil(len(keys)/2) stable int64 sort passes, least
+    significant pair first. Rows with equal keys keep their input order."""
+    keys = list(keys)
+    n = keys[0].shape[0]
+    perm = None
+    while keys:
+        if len(keys) >= 2:
+            hi, lo = keys[-2], keys[-1]
+            keys = keys[:-2]
+            k = pack2(hi, lo)
+        else:
+            k = keys.pop().to(torch.int64)
+        if perm is not None:
+            k = k[perm]
+        order = torch.sort(k, stable=True).indices
+        perm = order if perm is None else perm[order]
+    if perm is None:
+        perm = torch.arange(n, device=keys[0].device)
+    return perm
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Population count of the low 32 bits (int64 math: no uint32 shifts)."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def scatter_drop(col: torch.Tensor, idx: torch.Tensor, vals,
+                 accumulate: bool = False) -> torch.Tensor:
+    """In-place `col.at[idx].set/add(vals, mode="drop")` for idx in [0, n]: index
+    n (the JAX package's drop index) lands in a scratch row that is cut off.
+    Duplicate indices only ever come with accumulate=True, which adds with
+    atomics (index_add_; integer sums, so the result is exact):
+    index_put_(accumulate=True) serializes duplicates on CUDA, and most
+    dropped rows share the scratch index."""
+    n = col.shape[0]
+    ext = torch.cat([col, col.new_zeros((1,) + tuple(col.shape[1:]))])
+    if not isinstance(vals, torch.Tensor):
+        vals = torch.full(idx.shape, vals, dtype=col.dtype, device=col.device)
+    idx = idx.clamp(0, n).long()
+    if accumulate:
+        ext.index_add_(0, idx, vals.to(col.dtype))
+    else:
+        ext.index_put_((idx,), vals.to(col.dtype))
+    col.copy_(ext[:n])
+    return col
+
+
+def dus(col: torch.Tensor, src: torch.Tensor, start) -> torch.Tensor:
+    """In-place `lax.dynamic_update_slice(col, src, (start,))`: the start clamps
+    to [0, len(col) - len(src)] like XLA's. `start` may be a device scalar (no
+    host sync)."""
+    n, m = col.shape[0], src.shape[0]
+    if m == 0:
+        return col
+    s = torch.as_tensor(start, device=col.device).to(torch.int64).clamp(0, n - m)
+    idx = s + torch.arange(m, device=col.device)
+    col.index_copy_(0, idx, src.to(col.dtype))
+    return col

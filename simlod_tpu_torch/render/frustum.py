@@ -1,0 +1,43 @@
+"""Frustum culling math (port of simlod_tpu/render/frustum.py).
+
+Gribb-Hartmann plane extraction from a world-view-projection matrix plus the
+positive-vertex AABB test (reference math.cuh:154-199).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def frustum_planes(m: torch.Tensor) -> torch.Tensor:
+    """6 normalized planes [6,4] (nx,ny,nz,d) from a row-major transform `m` that
+    acts on column vectors (reference math.cuh:69-108 / 154-186)."""
+    planes = torch.stack([
+        m[3] - m[0],   # right
+        m[3] + m[0],   # left
+        m[3] + m[1],   # bottom
+        m[3] - m[1],   # top
+        m[3] - m[2],   # far
+        m[3] + m[2],   # near
+    ])
+    # XLA evaluates the norm's sum of squares as a fused multiply-add chain,
+    # fma(z, z, fma(y, y, x*x)); each fma is emulated in float64 (the product of
+    # two f32 values is exact there) and rounded to f32, like the hardware's
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    x, y, z = planes[:, 0], planes[:, 1], planes[:, 2]
+    n = torch.sqrt(fma(z, z, fma(y, y, x * x)))[:, None]
+    return planes / torch.clamp(n, min=1e-30)
+
+
+def intersects_frustum_cols(planes, mnx, mny, mnz, mxx, mxy, mxz):
+    """Column-wise p-vertex test over 1-D AABB coordinate arrays."""
+    ok = None
+    for i in range(6):
+        nx, ny, nz, d = planes[i, 0], planes[i, 1], planes[i, 2], planes[i, 3]
+        px = torch.where(nx > 0, mxx, mnx)
+        py = torch.where(ny > 0, mxy, mny)
+        pz = torch.where(nz > 0, mxz, mnz)
+        good = (px * nx + py * ny + pz * nz + d) >= 0.0
+        ok = good if ok is None else (ok & good)
+    return ok

@@ -1,0 +1,139 @@
+"""Properties of the port itself: it never imports jax, its kernel wrappers have
+no CPU fallback, and (on a card, marker `cuda`) the CUDA tile kernel is
+bit-equal to its plain PyTorch version. On a machine with a card, run the card
+tests with `python -m pytest tests/test_torch_port.py -m cuda`;
+chip_smoke.py runs the same comparison at the main path's shapes."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import simlod_tpu_torch
+from simlod_tpu_torch import kernels
+from simlod_tpu_torch.config import EngineConfig, Settings, Uniforms
+from simlod_tpu_torch.engine import Engine
+from simlod_tpu_torch.render import raster, raster_tiles
+
+# six test processes share the machine in the tier-1 run; these small tensors
+# gain nothing from intra-op threads, which would oversubscribe the cores
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.config",
+           "simlod_tpu_torch.constants", "simlod_tpu_torch.engine",
+           "simlod_tpu_torch.kernels", "simlod_tpu_torch.formats.simlod",
+           "simlod_tpu_torch.formats.synthetic", "simlod_tpu_torch.io.streaming",
+           "simlod_tpu_torch.octree.build", "simlod_tpu_torch.octree.structures",
+           "simlod_tpu_torch.ops.morton", "simlod_tpu_torch.ops.ragged",
+           "simlod_tpu_torch.ops.segments", "simlod_tpu_torch.render.camera",
+           "simlod_tpu_torch.render.frustum", "simlod_tpu_torch.render.raster",
+           "simlod_tpu_torch.render.raster_tiles",
+           "simlod_tpu_torch.render.render",
+           "simlod_tpu_torch.render.visibility"]
+
+
+def test_port_never_imports_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == 'jax'"
+            " or m.startswith('simlod_tpu.') or m == 'simlod_tpu'))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_every_port_module_is_listed():
+    pkg = os.path.dirname(simlod_tpu_torch.__file__)
+    found = set()
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), os.path.dirname(pkg))
+                mod = rel[:-3].replace(os.sep, ".")
+                found.add(mod[:-len(".__init__")] if mod.endswith("__init__")
+                          else mod)
+    assert found - {"simlod_tpu_torch.formats", "simlod_tpu_torch.io",
+                    "simlod_tpu_torch.octree", "simlod_tpu_torch.ops",
+                    "simlod_tpu_torch.render"} == set(MODULES)
+
+
+def _stream(n_tiles=4):
+    cols = torch.zeros((8, 4), dtype=torch.int32)
+    offs = torch.zeros(n_tiles + 1, dtype=torch.int32)
+    return cols, offs, torch.ones(1, dtype=torch.int32), n_tiles
+
+
+def test_tile_resolve_rejects_cpu_tensors():
+    before = raster_tiles.tile_resolve.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_tiles.tile_resolve(*_stream())
+    assert raster_tiles.tile_resolve.launches == before
+
+
+def test_cpu_frames_use_the_plain_version_and_count_no_launch():
+    before = raster_tiles.tile_resolve.launches
+    rng = np.random.default_rng(0)
+    n = 512
+    s = raster.Samples(
+        x=torch.from_numpy(rng.uniform(-.5, .5, n).astype(np.float32)),
+        y=torch.from_numpy(rng.uniform(-.5, .5, n).astype(np.float32)),
+        z=torch.from_numpy(rng.uniform(1, 3, n).astype(np.float32)),
+        rgba=torch.from_numpy(rng.integers(0, 2**31, n).astype(np.int32)),
+        node_fn=None, level_fn=None, valid=torch.ones(n, dtype=torch.bool),
+        count=torch.tensor(n))
+    m = np.zeros((4, 4), np.float32)
+    m[0, 0] = m[1, 1] = m[3, 2] = 1.0
+    u = Uniforms.make(64, 48, m)
+    color, depth = raster_tiles.rasterize_tiles(EngineConfig(), u, 64, 48, [s])
+    _, ref_d = raster.rasterize(EngineConfig(), u, 64, 48, [s])
+    np.testing.assert_array_equal(depth.numpy(), ref_d.numpy())
+    assert raster_tiles.tile_resolve.launches == before
+
+
+def test_engine_on_cuda_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(device="cuda")
+
+
+def test_kernel_build_has_no_fallback(monkeypatch, tmp_path):
+    """Without nvcc the build raises; nothing falls back to the plain version."""
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.build()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hqs", [True, False])
+def test_tile_kernel_matches_plain_version(hqs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    n = 200_000
+    f = lambda a: torch.from_numpy(a).to(dev)
+    s = raster.Samples(
+        x=f(rng.uniform(-.8, .8, n).astype(np.float32)),
+        y=f(rng.uniform(-.8, .8, n).astype(np.float32)),
+        z=f(rng.uniform(1, 5, n).astype(np.float32)),
+        rgba=f(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)),
+        node_fn=None, level_fn=None,
+        valid=torch.ones(n, dtype=torch.bool, device=dev),
+        count=torch.tensor(n, device=dev))
+    m = np.zeros((4, 4), np.float32)
+    m[0, 0] = m[1, 1] = m[3, 2] = 1.0
+    u = Uniforms.make(640, 480, m, settings=Settings(use_high_quality_shading=hqs),
+                      device=dev)
+    packed = raster_tiles.pack_samples(EngineConfig(), u, 640, 480, [s])
+    kc, kd = raster_tiles.tile_resolve(*packed)
+    rc, rd = raster_tiles.tile_resolve_reference(*packed)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, rc) and torch.equal(kd, rd)
