@@ -9,20 +9,36 @@ Phases (every one must pass; a failure raises and exits non-zero):
   2. small reference: a 60k-point terrain through Engine on the GPU and on the
      CPU (plain PyTorch versions of the kernels): equal counters, images within
      1 per channel of each other and of the goldens in tests/golden/;
-  3. main path: a seeded synthetic terrain of N points (default 36M, the size of
-     the Morro Bay file) written as .simlod, then Engine(cfg=None).open ->
-     load_all -> render(1920, 1080); every kernel launch counter is zeroed
-     before and read after;
+  3. bulk path: a seeded synthetic terrain of N points (default 36M, the size
+     of the Morro Bay file) written as .simlod, then Engine(cfg=None).open ->
+     load_all -> render(1920, 1080) (exact);
   4. kernel against plain version: the packed, sorted sample stream of that
      frame through the CUDA tile kernel and its plain PyTorch version, in both
-     shading modes, bit-equal, timed with CUDA events after a warm-up.
+     shading modes, bit-equal, timed with CUDA events after a warm-up;
+  5. small streamed reference: the 60k file through Engine.frame(160, 120)
+     until the stream drains (one step per item, frame_budget_ms 0) on the GPU
+     and the CPU: with point_budget 0 equal Stats and images within 1 per
+     channel frame by frame; with point_budget 1e6 (a budget that clears every
+     node) each GPU frame within 1 per channel of the CPU's pooled render of
+     the same state and pool; after the load, pooled == exact bit for bit;
+  6. streamed main path: the N-point file through the simultaneous loop,
+     open(chunk_steps=1) -> frame(1920, 1080) until the stream drains, with
+     point_budget 1.0 and frame_budget_ms 50 and the orbit yaw advanced 0.03
+     rad per frame; the tree must equal phase 3's;
+  7. post-load pooled vs exact 1080p frame on that loaded state;
+  8. kernel against plain version on the pooled frame's four-set stream (pool
+     points, pool voxels, exact points, exact voxels), both shading modes.
+Every kernel launch counter is zeroed just before each main path (phases 3, 6
+and 7) and read just after.
 
-It prints a JSON line with the kernels' launches, errors and times, and as its
-last line {"ok": true, "device": {...}}. Without a CUDA device it exits 1.
+It prints a JSON line with the kernels' launches, errors and times, the card
+line, and as its last line {"ok": true, "device": {...}}. Without a CUDA
+device it exits 1.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -116,6 +132,82 @@ def phase_small_reference(tmp, device):
             f"{d.max()}, GPU-golden max diff {g.max()}")
 
 
+def streamed_frames(path, device, point_budget, on_frame=None):
+    """The 60k file through Engine.frame(160, 120) until the stream drains,
+    one step per item, one item per frame; (engine, [(rgb, Stats dict)])."""
+    import dataclasses
+    from simlod_tpu_torch.config import EngineConfig, Settings
+    from simlod_tpu_torch.engine import Engine
+    from simlod_tpu_torch.render.render import image_to_rgba8
+    eng = Engine(EngineConfig(**GOLDEN_CFG),
+                 Settings(min_node_size=8.0, frame_budget_ms=0.0,
+                          point_budget=point_budget), device=device)
+    eng.open([path], chunk_steps=1)
+    out = []
+    while not eng.last_batch_finished:
+        eng.orbit.yaw += 0.05
+        eng.camera.world = eng.orbit.world()
+        img, st = eng.frame(160, 120)
+        rgb = image_to_rgba8(img)[..., :3].astype(int)
+        out.append((rgb, dataclasses.asdict(st)))
+        if on_frame is not None:
+            on_frame(eng, rgb, st)
+    return eng, out
+
+
+def phase_small_stream(tmp, device):
+    """Phase 5 (see the module docstring)."""
+    import numpy as np
+    import torch
+    from simlod_tpu_torch.config import Uniforms
+    from simlod_tpu_torch.octree.structures import (state_from_numpy,
+                                                    state_to_numpy)
+    from simlod_tpu_torch.render import drawpool
+    from simlod_tpu_torch.render.render import (image_to_rgba8,
+                                                render_frame_pooled)
+    path = os.path.join(tmp, "golden.simlod")
+    _, gpu = streamed_frames(path, device, 0.0)
+    _, cpu = streamed_frames(path, "cpu", 0.0)
+    check(len(gpu) == len(cpu) > 2, f"frames {len(gpu)} vs {len(cpu)}")
+    worst = 0
+    for i, ((gi, gs), (ci, cs)) in enumerate(zip(gpu, cpu)):
+        check(gs == cs, f"streamed frame {i}: GPU Stats {gs} != CPU {cs}")
+        worst = max(worst, int(np.abs(gi - ci).max()))
+    check(worst <= 1, f"streamed exact frames: GPU vs CPU max diff {worst}")
+    say(f"small stream, exact: {len(gpu)} frames, Stats equal, GPU-CPU max "
+        f"diff {worst}")
+
+    # pooled: the rebuild cadence follows the wall clock, so each GPU frame is
+    # held against the CPU render of the same state and pool
+    diffs = []
+
+    def on_frame(eng, rgb, st):
+        s = state_from_numpy(state_to_numpy(eng.state), "cpu")
+        pool = drawpool.pool_from_numpy(drawpool.pool_to_numpy(eng._draw_pool))
+        u = Uniforms.make(160, 120, eng.camera.transform(),
+                          eng._transform_update_bound, eng.settings)
+        img, fs = render_frame_pooled(eng.cfg, s, pool, 160, 120, u,
+                                      *eng.last_pooled_windows)
+        check(int(fs.num_visible_points) == st.num_visible_points
+              and int(fs.num_visible_voxels) == st.num_visible_voxels,
+              "pooled frame: GPU and CPU visible counts differ")
+        diffs.append(int(np.abs(image_to_rgba8(img)[..., :3].astype(int)
+                                - rgb).max()))
+    eng, pooled = streamed_frames(path, device, 1e6, on_frame)
+    check(max(diffs) <= 1, f"streamed pooled frames: GPU vs CPU diffs {diffs}")
+    check(pooled[-1][1]["num_points"] == gpu[-1][1]["num_points"]
+          and pooled[-1][1]["num_nodes"] == gpu[-1][1]["num_nodes"],
+          "pooled and exact streams built different trees")
+    img_pool, _ = eng.render(160, 120)
+    eng.settings.point_budget = 0.0
+    img_exact, _ = eng.render(160, 120)
+    check(torch.equal(img_pool, img_exact),
+          "post-load render: point_budget 1e6 != point_budget 0")
+    say(f"small stream, pooled: {len(pooled)} frames, GPU vs CPU render of "
+        f"the same state and pool max diff {max(diffs)}, "
+        f"{eng.t_pool.count} pool rebuilds; post-load pooled == exact")
+
+
 def time_ms(fn, reps: int = 20) -> float:
     import torch
     for _ in range(3):
@@ -129,6 +221,35 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+TREE = ("num_nodes", "num_points", "num_points_processed")
+
+
+def coverage(img, C) -> float:
+    """Share of pixels that are not background."""
+    rgb = img.cpu().numpy().view("uint32") & 0xFFFFFF
+    return float((rgb != (C.BACKGROUND_COLOR & 0xFFFFFF)).mean())
+
+
+def kernel_vs_plain(packed, what: str, card: str):
+    """The tile kernel and its plain version on one packed stream: bit-equal,
+    then both timed with CUDA events; (max abs err, ms, plain ms)."""
+    import torch
+    from simlod_tpu_torch.render import raster_tiles
+    kc, kd = raster_tiles.tile_resolve(*packed)
+    rc, rd = raster_tiles.tile_resolve_reference(*packed)
+    torch.cuda.synchronize()
+    err = max(int((kc.long() - rc.long()).abs().max()),
+              int((kd.long() - rd.long()).abs().max()))
+    check(torch.equal(kc, rc) and torch.equal(kd, rd),
+          f"tile kernel != plain version ({what}, max err {err})")
+    ms = time_ms(lambda: raster_tiles.tile_resolve(*packed))
+    plain_ms = time_ms(lambda: raster_tiles.tile_resolve_reference(*packed))
+    say(f"tile_resolve, {what}: {packed[0].shape[0]} samples, {packed[3]} "
+        f"tiles: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bit-equal; "
+        f"card: {card}")
+    return err, ms, plain_ms
 
 
 def main(argv=None) -> int:
@@ -148,7 +269,8 @@ def main(argv=None) -> int:
     from simlod_tpu_torch.engine import Engine
     from simlod_tpu_torch.formats import simlod, synthetic
     from simlod_tpu_torch.render import raster_tiles
-    from simlod_tpu_torch.render.render import frame_samples
+    from simlod_tpu_torch.render.render import (frame_samples,
+                                                pooled_frame_samples)
 
     dev = torch.device("cuda")
     # --- phase 1: card and build ---
@@ -163,7 +285,7 @@ def main(argv=None) -> int:
         # --- phase 2: small reference ---
         phase_small_reference(tmp, dev)
 
-        # --- phase 3: main path ---
+        # --- phase 3: bulk path ---
         n = args.points
         t0 = time.perf_counter()
         xyz, rgba = synthetic.terrain(n, seed=0)
@@ -173,6 +295,7 @@ def main(argv=None) -> int:
         say(f"terrain {n} points written in {time.perf_counter() - t0:.1f} s "
             f"({os.path.getsize(path) / 1e6:.0f} MB)")
 
+        launches = {}
         raster_tiles.tile_resolve.launches = 0
         eng = Engine(cfg=None, settings=Settings(), device=dev)
         eng.open([path])
@@ -180,6 +303,7 @@ def main(argv=None) -> int:
         eng.load_all()
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        load_syncs = eng.host_syncs
         img, stats = eng.render(W, H)
         first_ms = eng.t_render.max * 1e3
         frame_ms = []
@@ -187,9 +311,9 @@ def main(argv=None) -> int:
             t1 = time.perf_counter()
             img, stats = eng.render(W, H)
             frame_ms.append((time.perf_counter() - t1) * 1e3)
-        launches = raster_tiles.tile_resolve.launches
+        launches["bulk_exact"] = raster_tiles.tile_resolve.launches
         rep = eng.report()
-        eng.stream.stop()
+        bulk_tree = {k: rep[k] for k in TREE}
 
         check(rep["num_points"] + rep["num_points_dropped"] == n,
               f"points {rep['num_points']} + dropped "
@@ -198,21 +322,22 @@ def main(argv=None) -> int:
         check(stats.num_visible_points + stats.num_visible_voxels > 0,
               "nothing visible")
         check(tuple(img.shape) == (H, W), f"image shape {tuple(img.shape)}")
-        rgb = img.cpu().numpy().view(np.uint32) & 0xFFFFFF
-        cover = float((rgb != (C.BACKGROUND_COLOR & 0xFFFFFF)).mean())
+        cover = coverage(img, C)
         check(cover > 0.05, f"only {cover:.3%} of pixels drawn")
-        check(launches > 0, "the frame did not go through the tile kernel")
-        per_step = rep["host_syncs"] / max(rep["steps"], 1)
+        check(launches["bulk_exact"] > 0,
+              "the frame did not go through the tile kernel")
+        per_step = load_syncs / max(rep["steps"], 1)
         say(f"load_all: {load_s:.2f} s = {n / load_s / 1e6:.2f} MP/s; "
             f"nodes {rep['num_nodes']}, voxels {rep['num_voxels']}, "
             f"candidates_dropped {rep['num_candidates_dropped']}, "
-            f"host syncs {rep['host_syncs']} over {rep['steps']} steps "
-            f"({per_step:.2f}/step)")
+            f"host syncs {load_syncs} over {rep['steps']} steps "
+            f"({per_step:.2f}/step); card: {card}")
         say(f"render 1920x1080: first {first_ms:.2f} ms, then median "
             f"{float(np.median(frame_ms)):.2f} ms ({', '.join(f'{t:.2f}' for t in frame_ms)}); "
             f"visible points {stats.num_visible_points}, voxels "
-            f"{stats.num_visible_voxels}; {cover:.1%} of pixels drawn; "
-            f"tile kernel launches {launches}; card: {card}")
+            f"{stats.num_visible_voxels}; truncated {stats.render_truncated}; "
+            f"{cover:.1%} of pixels drawn; tile kernel launches "
+            f"{launches['bulk_exact']}; card: {card}")
 
         # --- phase 4: kernel against plain version on this frame's stream ---
         rows = {}
@@ -220,29 +345,122 @@ def main(argv=None) -> int:
             eng.settings.use_high_quality_shading = hqs
             u = eng.uniforms(W, H)
             _, sets, _ = frame_samples(eng.cfg, eng.state, u, *eng.last_windows)
-            packed = raster_tiles.pack_samples(eng.cfg, u, W, H, sets)
-            kc, kd = raster_tiles.tile_resolve(*packed)
-            rc, rd = raster_tiles.tile_resolve_reference(*packed)
-            torch.cuda.synchronize()
-            err = max(int((kc.long() - rc.long()).abs().max()),
-                      int((kd.long() - rd.long()).abs().max()))
-            check(torch.equal(kc, rc) and torch.equal(kd, rd),
-                  f"tile kernel != plain version (hqs={hqs}, max err {err})")
-            ms = time_ms(lambda: raster_tiles.tile_resolve(*packed))
-            plain_ms = time_ms(lambda: raster_tiles.tile_resolve_reference(*packed))
-            rows[hqs] = (err, ms, plain_ms)
-            say(f"tile_resolve hqs={hqs}: {packed[0].shape[0]} samples, "
-                f"{packed[3]} tiles: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bit-equal; card: {card}")
+            rows[("exact", hqs)] = kernel_vs_plain(
+                raster_tiles.pack_samples(eng.cfg, u, W, H, sets),
+                f"exact frame, hqs={hqs}", card)
+        eng.stream.stop()
+        del eng, img, stats
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- phase 5: small streamed reference ---
+        phase_small_stream(tmp, dev)
+
+        # --- phase 6: streamed main path (simultaneous loop, pooled) ---
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        raster_tiles.tile_resolve.launches = 0
+        eng = Engine(cfg=None, settings=Settings(point_budget=1.0,
+                                                 frame_budget_ms=50.0),
+                     device=dev)
+        t0 = time.perf_counter()
+        eng.open([path], chunk_steps=1)
+        yaw0 = eng.orbit.yaw     # the auto-focus view of phase 3
+        frame_ms = []
+        while not eng.last_batch_finished:
+            eng.orbit.yaw += 0.03   # orbiting the scan while it loads
+            eng.camera.world = eng.orbit.world()
+            t1 = time.perf_counter()
+            img, stats = eng.frame(W, H)
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+        loop_s = time.perf_counter() - t0
+        launches["streamed_pooled"] = raster_tiles.tile_resolve.launches
+        peak = torch.cuda.max_memory_allocated()
+        rep = eng.report()
+        frames = len(frame_ms)
+        cover = coverage(img, C)
+        check(eng.last_batch_finished and eng._splits_finished,
+              "the stream did not drain")
+        check(rep["num_points"] + rep["num_points_dropped"] == n,
+              f"streamed: points {rep['num_points']} + dropped "
+              f"{rep['num_points_dropped']} != {n}")
+        check(not rep["mem_capacity_reached"], "streamed: mem_capacity_reached")
+        tree = {k: rep[k] for k in TREE}
+        check(tree == bulk_tree, f"streamed tree {tree} != bulk {bulk_tree}")
+        check(cover > 0.05, f"streamed: only {cover:.3%} of pixels drawn")
+        check(launches["streamed_pooled"] >= frames,
+              f"{launches['streamed_pooled']} kernel launches for {frames} frames")
+        pool = rep["timings"]["pool"]
+        say(f"streamed loop (point_budget 1.0, frame_budget_ms 50, 1920x1080): "
+            f"{frames} frames in {loop_s:.2f} s = {n / loop_s / 1e6:.2f} MP/s "
+            f"concurrent; frame ms median {float(np.median(frame_ms)):.2f}, "
+            f"max {max(frame_ms):.2f}; pool rebuilds {pool['count']} taking "
+            f"{pool['count'] * pool['avg_ms'] / 1e3:.3f} s; host syncs "
+            f"{rep['host_syncs']} = {rep['host_syncs'] / frames:.1f}/frame; "
+            f"tile kernel launches {launches['streamed_pooled']}; peak device "
+            f"memory {peak / 2**30:.2f} GiB; last frame truncated "
+            f"{stats.render_truncated}, {cover:.1%} of pixels drawn; tree "
+            f"{tree} equals the bulk load's; card: {card}")
+        say("frame ms: " + ", ".join(f"{t:.1f}" for t in frame_ms))
+
+        # --- phase 7: post-load pooled vs exact frame, same camera ---
+        # at phase 3's auto-focus view, then at the loop's last view
+        launches["post_load_pooled"] = launches["post_load_exact"] = 0
+        for view, yaw in (("auto-focus", yaw0), ("orbit end", eng.orbit.yaw)):
+            eng.orbit.yaw = yaw
+            eng.camera.world = eng.orbit.world()
+            post = {}
+            for budget in (1.0, 0.0):
+                eng.settings.point_budget = budget
+                key = "post_load_pooled" if budget else "post_load_exact"
+                raster_tiles.tile_resolve.launches = 0
+                eng.render(W, H)     # builds the pool / sizes the windows
+                ms = []
+                for _ in range(5):
+                    t1 = time.perf_counter()
+                    img, stats = eng.render(W, H)
+                    ms.append((time.perf_counter() - t1) * 1e3)
+                launches[key] += raster_tiles.tile_resolve.launches
+                check(raster_tiles.tile_resolve.launches >= 6,
+                      f"{key}: not through the tile kernel")
+                check(coverage(img, C) > 0.05, f"{key}: too few pixels drawn")
+                post[budget] = (float(np.median(ms)), stats.render_truncated,
+                                stats.num_visible_points,
+                                stats.num_visible_voxels)
+            say(f"post-load 1920x1080, {view} view: pooled (point_budget 1.0) "
+                f"median {post[1.0][0]:.2f} ms, truncated {post[1.0][1]}, "
+                f"windows {eng.last_pooled_windows[:4]}; exact median "
+                f"{post[0.0][0]:.2f} ms, truncated {post[0.0][1]}, windows "
+                f"{eng.last_windows[:2]} (visible points {post[0.0][2]}, "
+                f"voxels {post[0.0][3]}); card: {card}")
+
+        # --- phase 8: kernel against plain version on the pooled stream ---
+        eng.settings.point_budget = 1.0
+        eng.render(W, H)
+        for hqs in (True, False):
+            eng.settings.use_high_quality_shading = hqs
+            u = eng.uniforms(W, H)
+            _, sets, _ = pooled_frame_samples(eng.cfg, eng.state,
+                                              eng._draw_pool, u,
+                                              *eng.last_pooled_windows)
+            check(len(sets) == 4, "the pooled frame has four sample sets")
+            rows[("pooled", hqs)] = kernel_vs_plain(
+                raster_tiles.pack_samples(eng.cfg, u, W, H, sets),
+                f"pooled frame, hqs={hqs}", card)
+        eng.stream.stop()
         del eng
 
-    err, ms, plain_ms = rows[True]
+    err = max(r[0] for r in rows.values())
     say(json.dumps({"kernels": [{
         "name": "tile_resolve", "route": "cuda",
         "source": "simlod_tpu_torch/csrc/raster_tiles.cu",
         "replaces": "simlod_tpu/render/raster_tiles.py:237",
-        "launches": launches, "max_abs_err": max(err, rows[False][0]),
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": err,
+        "ms": rows[("exact", True)][1], "plain_ms": rows[("exact", True)][2],
+        "pooled_ms": rows[("pooled", True)][1],
+        "pooled_plain_ms": rows[("pooled", True)][2]}]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

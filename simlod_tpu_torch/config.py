@@ -51,8 +51,8 @@ class EngineConfig:
     # reference's u64 atomicMin winner exactly (render.cu:95-99).
     raster_exact_tiebreak: bool = True
 
-    # Draw-pool row cap (render/drawpool.py in the JAX package; kept for config
-    # compatibility until the pooled render is ported).
+    # Draw-pool row cap per node (render/drawpool.py): nodes with more samples
+    # render through the exact path.
     draw_cap: int = 1 << 18
 
     # Render capacities
@@ -155,8 +155,8 @@ class Settings:
     frame_budget_ms: float = 50.0
     enable_edl: bool = True
     edl_strength: float = 0.4
-    # samples per covered pixel per node for the draw pool; 0 = exact render
-    # (the only mode this package renders so far)
+    # samples per covered pixel per node for the draw pool (render/drawpool.py);
+    # 0 = exact render
     point_budget: float = 0.0
 
 

@@ -232,7 +232,8 @@ class PointStream:
             nonlocal step, fill
             t0 = time.perf_counter()
             off = 0
-            while off < n:
+            # a stopped stream's flush gives up on its put: stop filling then
+            while off < n and not self._stop.is_set():
                 take = min(B - fill, n - off)
                 for p, c in zip(planes, cols):
                     p[step, fill:fill + take] = torch.from_numpy(
@@ -273,12 +274,18 @@ class PointStream:
 
     # --- consumer side ---
     def __iter__(self):
+        """Yield the uploaded chunks in file order. Ends once the uploader's
+        end marker arrives or, after stop(), once nothing is left to take
+        (a stopped uploader gives up on its end marker); raises if a pipeline
+        thread failed."""
         while True:
             try:
                 item = self._ready.get(timeout=0.1)
             except queue.Empty:
                 if self._error is not None:
                     raise RuntimeError("point stream failed") from self._error
+                if self._stop.is_set():
+                    return
                 continue
             if item is None:
                 if self._error is not None:

@@ -23,6 +23,8 @@ class RaggedPlan(NamedTuple):
     seg_of: torch.Tensor  # [W] segment id per output element (clamped >= 0)
     elem: torch.Tensor    # [W] element index within its segment
     valid: torch.Tensor   # [W] element validity
+    mpos: torch.Tensor    # [S] output position of each segment's first element
+                          # (out_len for empty segments)
     out_len: int
 
 
@@ -55,9 +57,10 @@ def plan(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int) -> RaggedPlan:
     elem = j2 - pstart_r[:, None]
     src = src_row.to(torch.int64)[:, None] * A + lanes[None, :]
     seg_of = sr.to(torch.int32)[:, None].expand(WR, A)
+    mpos = torch.where(nz, row_offs * A + phase, out_len)
     return RaggedPlan(src=src.reshape(out_len), seg_of=seg_of.reshape(out_len),
                       elem=elem.reshape(out_len), valid=valid.reshape(out_len),
-                      out_len=out_len)
+                      mpos=mpos, out_len=out_len)
 
 
 def gather_column(p: RaggedPlan, src: torch.Tensor) -> torch.Tensor:

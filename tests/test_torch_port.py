@@ -29,6 +29,7 @@ MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.config",
            "simlod_tpu_torch.octree.build", "simlod_tpu_torch.octree.structures",
            "simlod_tpu_torch.ops.morton", "simlod_tpu_torch.ops.ragged",
            "simlod_tpu_torch.ops.segments", "simlod_tpu_torch.render.camera",
+           "simlod_tpu_torch.render.drawpool",
            "simlod_tpu_torch.render.frustum", "simlod_tpu_torch.render.raster",
            "simlod_tpu_torch.render.raster_tiles",
            "simlod_tpu_torch.render.render",
