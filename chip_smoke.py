@@ -27,9 +27,30 @@ Phases (every one must pass; a failure raises and exits non-zero):
      rad per frame; the tree must equal phase 3's;
   7. post-load pooled vs exact 1080p frame on that loaded state;
   8. kernel against plain version on the pooled frame's four-set stream (pool
-     points, pool voxels, exact points, exact voxels), both shading modes.
-Every kernel launch counter is zeroed just before each main path (phases 3, 6
-and 7) and read just after.
+     points, pool voxels, exact points, exact voxels), both shading modes;
+  9. small references with the new modules, GPU against CPU: the 60k file with
+     show_bounding_box on (exact and pooled frames within 1 per channel),
+     filter_colors on its state (voxel colours equal per node and cell), and
+     the out-of-core fixture of tests/test_outofcore.py (2 LAS bricks of 40k
+     points, a 65,536-point pool: equal report(), composites within 1 per
+     channel);
+ 10. LAS bulk path: phase 3's terrain split stably into 4 x-quadrant tiles,
+     written as .las (and the same records as .laz), the .las directory through
+     Engine(cfg=None).open -> load_all -> render(1920, 1080); kernel against
+     plain version on that frame's stream;
+ 11. LAZ streamed path: the .laz directory through the simultaneous loop
+     (open(chunk_steps=1) -> frame(1920, 1080) until drained, point_budget 1.0,
+     frame_budget_ms 50, yaw +0.03 rad per frame); the tree must equal phase
+     10's and each LAZ file must be decoded exactly once;
+ 12. colour filter and overlays on phase 10's state: filter_colors (seconds,
+     host syncs, unchanged node and voxel counts), exact and pooled 1080p frames
+     with show_bounding_box off and on;
+ 13. out-of-core on the 4 LAS tiles with a device point pool sized for one
+     tile: build_all, the composited 1080p frame held against a depth-min
+     composite of the per-brick planes computed on the host, a closeup
+     auto_page and one frame.
+Every kernel launch counter is zeroed just before each main path (phases 3, 6,
+7, 10, 11, 12 and 13) and read just after.
 
 It prints a JSON line with the kernels' launches, errors and times, the card
 line, and as its last line {"ok": true, "device": {...}}. Without a CUDA
@@ -207,6 +228,146 @@ def phase_small_stream(tmp, device):
         f"the same state and pool max diff {max(diffs)}, "
         f"{eng.t_pool.count} pool rebuilds; post-load pooled == exact")
 
+# the out-of-core fixture of tests/test_outofcore.py (2 LAS bricks of 40k)
+OOC_CFG = dict(
+    candidate_factor=21, node_capacity=1 << 12, point_capacity=1 << 16,
+    voxel_capacity=1 << 18, segment_capacity=1 << 14, step_points=1 << 12,
+    spill_capacity=1 << 12, max_splits_per_round=64, seg_select_cap=1 << 10,
+    max_points_per_node=1024, max_render_points=1 << 17,
+    max_render_voxels=1 << 18)
+
+
+def write_ooc_bricks(tmp):
+    """Disjoint-box LAS bricks along x, seeded like tests/test_outofcore.py."""
+    import numpy as np
+    from simlod_tpu_torch.formats import las
+    rng = np.random.default_rng(5)
+    d = os.path.join(tmp, "ooc_small")
+    os.makedirs(d, exist_ok=True)
+    paths = []
+    for i in range(2):
+        xyz = rng.random((40_000, 3)).astype(np.float32)
+        xyz[:, 0] = xyz[:, 0] * 0.9 + i * 1.0
+        rgba = rng.integers(0, 2**32, 40_000, dtype=np.uint64).astype(np.uint32)
+        paths.append(os.path.join(d, f"brick_{i}.las"))
+        las.write(paths[-1], xyz, rgba)
+    return paths
+
+
+def phase_small_new(tmp, device):
+    """Phase 9 (see the module docstring)."""
+    import numpy as np
+    from simlod_tpu_torch.config import EngineConfig, Settings
+    from simlod_tpu_torch.engine import Engine
+    from simlod_tpu_torch.octree import inspect
+    from simlod_tpu_torch.outofcore import OutOfCoreEngine
+    from simlod_tpu_torch.render.render import image_to_rgba8
+    path = os.path.join(tmp, "golden.simlod")
+    rgb = lambda img: image_to_rgba8(img)[..., :3].astype(int)
+
+    def slice_run(dev):
+        eng = Engine(EngineConfig(**GOLDEN_CFG),
+                     Settings(min_node_size=8.0, show_bounding_box=True),
+                     device=dev)
+        eng.open([path])
+        eng.load_all()
+        eng.orbit.yaw, eng.orbit.pitch = 0.3, -0.6
+        eng.camera.world = eng.orbit.world()
+        eng.render(160, 120)
+        # freeze the visibility camera and step back: the frozen frustum's
+        # wireframe then lies inside the frame
+        eng.settings.do_update_visibility = False
+        eng.orbit.yaw, eng.orbit.radius = -0.2, eng.orbit.radius * 1.6
+        eng.camera.world = eng.orbit.world()
+        imgs = {}
+        for budget in (0.0, 1.0):
+            eng.settings.point_budget = budget
+            imgs[budget] = rgb(eng.render(160, 120)[0])
+        eng.settings.show_bounding_box = False
+        eng.settings.point_budget = 0.0
+        imgs["plain"] = rgb(eng.render(160, 120)[0])
+        eng.filter_colors()
+        vox = {k: v["voxels"] for k, v in inspect.node_table(eng.state).items()}
+        eng.stream.stop()
+        return imgs, vox
+
+    (gi, gv), (ci, cv) = slice_run(device), slice_run("cpu")
+    for key in (0.0, 1.0, "plain"):
+        d = np.abs(gi[key] - ci[key])
+        check(d.max() <= 1, f"overlay frame {key}: GPU vs CPU max diff {d.max()}")
+    boxes = int((gi[0.0] != gi["plain"]).any(-1).sum())
+    check(boxes > 0, "show_bounding_box drew nothing")
+    check(gv == cv, "filter_colors: GPU and CPU voxel colours differ")
+    say(f"small overlays: exact and pooled frames with boxes GPU-CPU max diff "
+        f"<= 1, {boxes} pixels differ from the frame without boxes; "
+        f"filter_colors: {sum(map(len, gv.values()))} voxels in {len(gv)} "
+        f"nodes equal per (node, cell) on GPU and CPU")
+
+    paths = write_ooc_bricks(tmp)
+
+    def ooc_run(dev):
+        o = OutOfCoreEngine(EngineConfig(**OOC_CFG), Settings(), device=dev)
+        o.open(paths)
+        o.build_all()
+        return o.report(), rgb(o.render(320, 200)[0])
+
+    (gr, gimg), (cr, cimg) = ooc_run(device), ooc_run("cpu")
+    check(gr == cr, f"out-of-core report: GPU {gr} != CPU {cr}")
+    d = np.abs(gimg - cimg)
+    check(d.max() <= 1, f"out-of-core composite: GPU vs CPU max diff {d.max()}")
+    check(gr["total_points"] == 80_000 > gr["device_point_capacity"],
+          f"out-of-core fixture: {gr}")
+    say(f"small out-of-core: reports equal ({gr['bricks']} bricks, "
+        f"{gr['total_points']} points over a {gr['device_point_capacity']}-"
+        f"point pool), composite GPU-CPU max diff {d.max()}")
+
+
+def write_tiles(tmp, xyz, rgba):
+    """Phase 3's terrain split stably into 4 x-quadrant tiles, each written as
+    .las into las/ and as .laz (the same records) into laz/; the LAZ tiles are
+    encoded in parallel threads (the codec releases the GIL)."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from simlod_tpu_torch.formats import las, laz
+    x = xyz[:, 0]
+    q = np.clip(((x - x.min()) / max(float(np.ptp(x)), 1e-9) * 4).astype(int),
+                0, 3)
+    order = np.argsort(q, kind="stable")
+    bounds = np.searchsorted(q[order], np.arange(5))
+    tiles = [order[bounds[i]:bounds[i + 1]] for i in range(4)]
+    dirs = {k: os.path.join(tmp, k) for k in ("las", "laz")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    for i, t in enumerate(tiles):
+        las.write(os.path.join(dirs["las"], f"tile_{i}.las"), xyz[t], rgba[t])
+    t_las = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        list(ex.map(lambda it: laz.write(
+            os.path.join(dirs["laz"], f"tile_{it[0]}.laz"), xyz[it[1]],
+            rgba[it[1]]), enumerate(tiles)))
+    t_laz = time.perf_counter() - t0
+    size = lambda d: sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+    say(f"tiles: {[len(t) for t in tiles]} points; LAS written in "
+        f"{t_las:.2f} s ({size(dirs['las']) / 1e6:.0f} MB), LAZ in "
+        f"{t_laz:.2f} s ({size(dirs['laz']) / 1e6:.0f} MB) on the host CPU")
+    return dirs, [len(t) for t in tiles]
+
+
+def median_ms(fn, reps: int = 5):
+    """Wall ms of fn (which ends in a device sync): one warm-up, then the
+    median and the list of `reps` calls."""
+    import numpy as np
+    out = fn()
+    ms = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return float(np.median(ms)), out
+
 
 def time_ms(fn, reps: int = 20) -> float:
     import torch
@@ -290,8 +451,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         xyz, rgba = synthetic.terrain(n, seed=0)
         path = os.path.join(tmp, "terrain.simlod")
-        simlod.write(path, xyz, rgba)
-        del xyz, rgba
+        simlod.write(path, xyz, rgba)     # xyz, rgba stay for phase 10
         say(f"terrain {n} points written in {time.perf_counter() - t0:.1f} s "
             f"({os.path.getsize(path) / 1e6:.0f} MB)")
 
@@ -450,6 +610,226 @@ def main(argv=None) -> int:
                 f"pooled frame, hqs={hqs}", card)
         eng.stream.stop()
         del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- phase 9: small references of the new modules, GPU vs CPU ---
+        phase_small_new(tmp, dev)
+
+        # --- phase 10: LAS bulk path ---
+        dirs, tile_sizes = write_tiles(tmp, xyz, rgba)
+        del xyz, rgba
+        raster_tiles.tile_resolve.launches = 0
+        eng10 = Engine(cfg=None, settings=Settings(), device=dev)
+        eng10.open([dirs["las"]])
+        t0 = time.perf_counter()
+        eng10.load_all()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_syncs = eng10.host_syncs
+        rep = eng10.report()
+        las_ms, (img, stats) = median_ms(lambda: eng10.render(W, H))
+        launches["las_bulk"] = raster_tiles.tile_resolve.launches
+        las_tree = {k: rep[k] for k in TREE}
+        cover = coverage(img, C)
+        check(rep["num_points"] + rep["num_points_dropped"] == n,
+              f"LAS: points {rep['num_points']} + dropped "
+              f"{rep['num_points_dropped']} != {n}")
+        check(not rep["mem_capacity_reached"], "LAS: mem_capacity_reached")
+        check(cover > 0.05, f"LAS: only {cover:.3%} of pixels drawn")
+        check(launches["las_bulk"] > 0, "LAS frames not through the tile kernel")
+        say(f"LAS bulk load of {len(tile_sizes)} tiles: {load_s:.2f} s = "
+            f"{n / load_s / 1e6:.2f} MP/s; stream t_decode "
+            f"{rep['stream']['t_decode']} s (summed over loader threads); host "
+            f"syncs {load_syncs}; tree {las_tree}; 1920x1080 exact frame median "
+            f"{las_ms:.2f} ms, truncated {stats.render_truncated}, {cover:.1%} "
+            f"of pixels drawn; tile kernel launches {launches['las_bulk']}; "
+            f"card: {card}")
+        u = eng10.uniforms(W, H)
+        _, sets, _ = frame_samples(eng10.cfg, eng10.state, u, *eng10.last_windows)
+        rows[("las", True)] = kernel_vs_plain(
+            raster_tiles.pack_samples(eng10.cfg, u, W, H, sets),
+            "LAS exact frame, hqs=True", card)
+
+        # --- phase 11: LAZ streamed path (simultaneous loop, pooled) ---
+        from simlod_tpu_torch.formats import laz
+        decodes, decode_s = laz.decode_count, laz.decode_seconds
+        raster_tiles.tile_resolve.launches = 0
+        eng = Engine(cfg=None, settings=Settings(point_budget=1.0,
+                                                 frame_budget_ms=50.0),
+                     device=dev)
+        t0 = time.perf_counter()
+        eng.open([dirs["laz"]], chunk_steps=1)
+        frame_ms = []
+        while not eng.last_batch_finished:
+            eng.orbit.yaw += 0.03
+            eng.camera.world = eng.orbit.world()
+            t1 = time.perf_counter()
+            img, stats = eng.frame(W, H)
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+        loop_s = time.perf_counter() - t0
+        launches["laz_streamed"] = raster_tiles.tile_resolve.launches
+        rep = eng.report()
+        tree = {k: rep[k] for k in TREE}
+        n_dec = laz.decode_count - decodes
+        check(tree == las_tree, f"LAZ streamed tree {tree} != LAS bulk "
+              f"{las_tree}")
+        check(n_dec == len(tile_sizes), f"{n_dec} LAZ file decodes for "
+              f"{len(tile_sizes)} files")
+        check(launches["laz_streamed"] >= len(frame_ms),
+              f"{launches['laz_streamed']} kernel launches for "
+              f"{len(frame_ms)} frames")
+        check(coverage(img, C) > 0.05, "LAZ: too few pixels drawn")
+        say(f"LAZ streamed loop (point_budget 1.0, frame_budget_ms 50, "
+            f"1920x1080): {len(frame_ms)} frames in {loop_s:.2f} s = "
+            f"{n / loop_s / 1e6:.2f} MP/s concurrent; frame ms median "
+            f"{float(np.median(frame_ms)):.2f}, max {max(frame_ms):.2f}; "
+            f"{n_dec} whole-file LAZ decodes (one per file) taking "
+            f"{laz.decode_seconds - decode_s:.2f} s on the host CPU; host syncs "
+            f"{rep['host_syncs']}; tile kernel launches "
+            f"{launches['laz_streamed']}; tree {tree} equals the LAS bulk "
+            f"load's; card: {card}")
+        u = eng.uniforms(W, H)
+        eng.render(W, H)
+        _, sets, _ = pooled_frame_samples(eng.cfg, eng.state, eng._draw_pool,
+                                          u, *eng.last_pooled_windows)
+        rows[("laz", True)] = kernel_vs_plain(
+            raster_tiles.pack_samples(eng.cfg, u, W, H, sets),
+            "LAZ pooled frame, hqs=True", card)
+        eng.stream.stop()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- phase 12: colour filter and overlays on phase 10's state ---
+        before = eng10.report()
+        syncs = eng10.host_syncs
+        t0 = time.perf_counter()
+        eng10.filter_colors()
+        torch.cuda.synchronize()
+        filter_s = time.perf_counter() - t0
+        after = eng10.report()
+        for k in ("num_nodes", "num_voxels", "num_voxels_stored",
+                  "num_points"):
+            check(after[k] == before[k], f"filter_colors changed {k}: "
+                  f"{before[k]} -> {after[k]}")
+        say(f"filter_colors: {filter_s:.3f} s, {eng10.host_syncs - syncs} host "
+            f"syncs, {after['num_voxels']} voxels in {after['num_nodes']} "
+            f"nodes (counts unchanged); card: {card}")
+        overlay = {}
+        launches["overlay"] = 0
+        for budget in (0.0, 1.0):
+            eng10.settings.point_budget = budget
+            for boxes in (False, True):
+                eng10.settings.show_bounding_box = boxes
+                raster_tiles.tile_resolve.launches = 0
+                ms, (img, stats) = median_ms(lambda: eng10.render(W, H))
+                if boxes:
+                    launches["overlay"] += raster_tiles.tile_resolve.launches
+                    check(raster_tiles.tile_resolve.launches >= 6,
+                          "overlay frames not through the tile kernel")
+                overlay[(budget, boxes)] = (ms, img)
+            drawn = int((overlay[(budget, True)][1]
+                         != overlay[(budget, False)][1]).sum())
+            check(drawn > 0, f"point_budget {budget}: boxes drew nothing")
+            kind = "pooled" if budget else "exact"
+            say(f"{kind} 1920x1080 after filter_colors: without boxes median "
+                f"{overlay[(budget, False)][0]:.2f} ms, with boxes "
+                f"{overlay[(budget, True)][0]:.2f} ms ({drawn} pixels differ); "
+                f"card: {card}")
+        eng10.settings.show_bounding_box = False
+        eng10.stream.stop()
+        del eng10, img, stats
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- phase 13: out-of-core on the 4 LAS tiles ---
+        from simlod_tpu_torch.config import EngineConfig
+        from simlod_tpu_torch.outofcore import OutOfCoreEngine
+        from simlod_tpu_torch.render import raster
+        from simlod_tpu_torch.render.render import composite_frames
+        raster_tiles.tile_resolve.launches = 0
+        ooc = OutOfCoreEngine(EngineConfig.auto(total_points=max(tile_sizes),
+                                                device=dev),
+                              Settings(), device=dev)
+        ooc.open([dirs["las"]])
+        brick_s = []
+        for p in ooc.brick_paths:
+            t0 = time.perf_counter()
+            ooc.build_brick(p)
+            torch.cuda.synchronize()
+            brick_s.append(time.perf_counter() - t0)
+        rep = ooc.report()
+        check(rep["total_points"] == n > ooc.cfg.point_capacity,
+              f"out-of-core: {rep['total_points']} points, pool "
+              f"{ooc.cfg.point_capacity}")
+        say(f"out-of-core build: {len(brick_s)} bricks in "
+            f"{', '.join(f'{t:.2f}' for t in brick_s)} s; {rep['total_points']} "
+            f"points over a {ooc.cfg.point_capacity}-point device pool; host "
+            f"bytes {rep['host_bytes']}; {rep['total_voxels']} voxels, "
+            f"{rep['total_nodes']} nodes; card: {card}")
+
+        def ooc_frame():
+            img, st = ooc.render(W, H)
+            torch.cuda.synchronize()
+            return img, st
+        raster_tiles.tile_resolve.launches = 0
+        ooc_ms, (img, _) = median_ms(ooc_frame)
+        visible = len(ooc.last_drawn_bricks)
+        frame_launches = raster_tiles.tile_resolve.launches
+        check(frame_launches >= 6 * visible > 0,
+              f"{frame_launches} kernel launches for {visible} visible bricks "
+              "over 6 frames")
+        planes, u = ooc.render_planes(W, H)
+        comp, depth = composite_frames(torch.stack([p[1] for p in planes]),
+                                       torch.stack([p[2] for p in planes]),
+                                       u, W, H)
+        hc = np.stack([p[1].cpu().numpy() for p in planes])
+        hd = np.stack([p[2].cpu().numpy() for p in planes])
+        k = np.argmin(hd, axis=0)
+        cols = np.arange(hd.shape[1])
+        host_c, host_d = hc[k, cols], hd[k, cols]
+        check(np.array_equal(depth.cpu().numpy(), host_d),
+              "composite depth != host depth-min of the brick planes")
+        host_img = raster.edl(torch.from_numpy(host_c).to(dev),
+                              torch.from_numpy(host_d).to(dev), u, W, H)
+        check(torch.equal(comp.reshape(-1), host_img)
+              and torch.equal(img, comp),
+              "composite != host depth-min composite of the brick planes")
+        # evicted leaves draw nothing: the composite shows the bricks' voxel
+        # LOD, so only drawing at all is required of it
+        ooc_cover = coverage(img, C)
+        check(ooc_cover > 0, "out-of-core: nothing drawn")
+        b = ooc.bricks[0]
+        ooc.orbit.target = 0.5 * (b.box_min + b.box_max).astype(np.float64)
+        ooc.orbit.radius = 0.3 * float(np.linalg.norm(b.box_max - b.box_min))
+        ooc.camera.world = ooc.orbit.world()
+        # the check's render_planes above is not part of the path's count
+        raster_tiles.tile_resolve.launches = 0
+        paged = ooc.auto_page(W, H)
+        check(paged is not None, "closeup: no brick paged in")
+        t1 = time.perf_counter()
+        img, close_stats = ooc_frame()
+        close_ms = (time.perf_counter() - t1) * 1e3
+        launches["ooc_bricks"] = (frame_launches
+                                  + raster_tiles.tile_resolve.launches)
+        check(coverage(img, C) > 0.05, "closeup: too few pixels drawn")
+        close_trunc = {i: bool(fs.truncated) for i, fs in close_stats.items()}
+        say(f"out-of-core 1920x1080 composite of {visible} visible bricks: "
+            f"median {ooc_ms:.2f} ms, {ooc_cover:.1%} of pixels drawn, equal to "
+            f"the host depth-min composite of the brick planes; closeup paged in brick {paged} "
+            f"({ooc.bricks[paged].pool_used} point rows), frame "
+            f"{close_ms:.2f} ms, truncated by brick {close_trunc}; tile kernel "
+            f"launches {launches['ooc_bricks']}; card: {card}")
+        st = ooc.resident_state(paged)
+        rcfg = ooc._render_cfg()
+        u = ooc.uniforms(W, H)
+        _, sets, _ = frame_samples(rcfg, st, u, rcfg.max_render_points,
+                                   rcfg.max_render_voxels)
+        rows[("ooc", True)] = kernel_vs_plain(
+            raster_tiles.pack_samples(rcfg, u, W, H, sets),
+            "out-of-core paged brick frame, hqs=True", card)
+        del ooc
 
     err = max(r[0] for r in rows.values())
     say(json.dumps({"kernels": [{
@@ -460,7 +840,9 @@ def main(argv=None) -> int:
         "max_abs_err": err,
         "ms": rows[("exact", True)][1], "plain_ms": rows[("exact", True)][2],
         "pooled_ms": rows[("pooled", True)][1],
-        "pooled_plain_ms": rows[("pooled", True)][2]}]}))
+        "pooled_plain_ms": rows[("pooled", True)][2],
+        "ms_by_stream": {k[0]: [round(r[1], 4), round(r[2], 4)]
+                         for k, r in rows.items() if k[1]}}]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,13 @@
 CUDA kernels for NVIDIA Hopper.
 
 A port of `simlod_tpu` (JAX/XLA/Pallas) that keeps its module layout and names:
-stream .simlod files, build the LOD octree on the device (Morton-routed leaves
-split at 50k points, first-come voxels on a 128^3 grid in inner nodes) and render
-it (frustum + pixel-size LOD selection, depth-min splats with the u64 atomicMin
-tiebreak, high-quality shading, eye-dome lighting).
+stream .simlod, LAS and LAZ files (host C codecs in native/, built at first
+use), build the LOD octree on the device (Morton-routed leaves split at 50k
+points, first-come voxels on a 128^3 grid in inner nodes) and render it
+(frustum + pixel-size LOD selection, depth-min splats with the u64 atomicMin
+tiebreak, high-quality shading, eye-dome lighting, box overlays), with a
+colour filter for inner voxels and an out-of-core brick engine for datasets
+larger than the device point pool.
 
 Every function takes or derives an explicit `torch.device`. The package never
 imports jax; the JAX package stays the reference that the tests hold it against.

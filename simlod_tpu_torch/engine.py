@@ -236,17 +236,19 @@ class Engine:
                                  np.asarray(box_max) - np.asarray(box_min))
             self.camera.world = self.orbit.world()
 
-    def open(self, paths, chunk_steps: int | None = None) -> PointStream:
-        """Scan files, reset the octree to their union box, start streaming.
-        chunk_steps overrides cfg.steps_per_dispatch for this stream only
-        (frame-loop pacing: steps per streamed item)."""
+    def open(self, paths, chunk_steps: int | None = None,
+             box_override=None) -> PointStream:
+        """Scan files, reset the octree to their union box (or to
+        box_override = (min, max): an out-of-core brick's world box), start
+        streaming. chunk_steps overrides cfg.steps_per_dispatch for this
+        stream only (frame-loop pacing: steps per streamed item)."""
         if self._auto_cfg:
             total = sum(e.num_points for e in scan_paths(paths))
             self.cfg = EngineConfig.auto(total_points=total, device=self.device)
         stream = PointStream(
             paths, self.cfg.step_points, device=self.device,
             chunk_steps=chunk_steps if chunk_steps is not None
-            else self.cfg.steps_per_dispatch)
+            else self.cfg.steps_per_dispatch, box_override=box_override)
         box = stream.box_max - stream.box_min
         self.reset(np.zeros(3, np.float32), box.astype(np.float32))
         self.stream = stream
@@ -446,6 +448,19 @@ class Engine:
         cap = self.cfg.step_points + self.cfg.spill_capacity
         self.cfg = dataclasses.replace(self.cfg,
                                        cand_multi_rows=min(need, cap))
+
+    def filter_colors(self) -> None:
+        """Bottom-up voxel colour filtering (reference colorfilter.cu; see
+        octree/colorfilter.py). Compacts first for an exact CSR. Drops the draw
+        pool, which holds its own copy of the voxel colours and whose key does
+        not change with them."""
+        from .octree import colorfilter
+        self._maybe_compact(force=True)
+        syncs = colorfilter.host_syncs
+        self.state = colorfilter.filter_colors(self.cfg, self.state)
+        self.host_syncs += colorfilter.host_syncs - syncs
+        self._draw_pool = None
+        self._pool_key = None
 
     # --- rendering ---
     def uniforms(self, width: int, height: int) -> Uniforms:

@@ -1,7 +1,11 @@
-"""Host streaming pipeline (port of simlod_tpu/io/streaming.py, .simlod files):
-files -> loader threads -> pinned host staging planes -> async H2D copies.
+"""Host streaming pipeline (port of simlod_tpu/io/streaming.py; .simlod, LAS and
+LAZ files): files -> loader threads -> pinned host staging planes -> async H2D
+copies.
 
-  - loader threads decode 1M-point file batches (numpy memmap) into column arrays;
+  - loader threads decode 1M-point file batches into column arrays with the
+    native column decoders (native/fastload.c): .simlod and LAS records straight
+    from a memmap of the file, LAZ records from the file's one cached
+    whole-file decode (formats/laz.py);
   - one uploader thread packs them, in file order, into [K, B] step planes in
     pinned (page-locked) host memory and copies each plane set to the device with
     non_blocking copies on a side CUDA stream, recording an event; the consumer's
@@ -11,7 +15,8 @@ files -> loader threads -> pinned host staging planes -> async H2D copies.
     consumer.
 
 On a CPU device the planes are plain tensors and nothing is pinned or async.
-All files share one union box; coordinates are translated by -union_min.
+All files share one union box (or the `box_override` box: out-of-core bricks
+are rebased into one world box); coordinates are translated by -box_min.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import time
 import numpy as np
 import torch
 
-from ..formats import simlod
+from .. import native
+from ..formats import las, laz, simlod
 
 BATCH_POINTS = 1_000_000   # loader batch granularity (reference MAX_BATCH_SIZE)
 
@@ -33,7 +39,7 @@ BATCH_POINTS = 1_000_000   # loader batch granularity (reference MAX_BATCH_SIZE)
 @dataclasses.dataclass
 class FileEntry:
     path: str
-    kind: str                # "simlod"
+    kind: str                # "simlod" | "las" | "laz"
     num_points: int
     box_min: np.ndarray      # original coords
     box_max: np.ndarray
@@ -49,7 +55,8 @@ class BatchRef:
 
 
 def scan_paths(paths) -> list[FileEntry]:
-    """File entries for the given files / directories (.simlod only so far)."""
+    """File entries for the given files / directories (.simlod, .las, .laz;
+    other files are skipped)."""
     files = []
     for p in paths:
         if os.path.isdir(p):
@@ -65,7 +72,9 @@ def scan_paths(paths) -> list[FileEntry]:
                                      info.box_min.astype(np.float64),
                                      info.box_max.astype(np.float64), info))
         elif low.endswith((".las", ".laz")):
-            raise NotImplementedError(f"{f}: LAS/LAZ input is not ported yet")
+            hdr = las.load_header(f)
+            entries.append(FileEntry(f, low[-3:], hdr.num_points, hdr.box_min,
+                                     hdr.box_max, hdr))
     return entries
 
 
@@ -78,15 +87,22 @@ class PointStream:
 
     def __init__(self, paths, step_points: int, device=None,
                  num_loaders: int | None = None, ring_slots: int = 4,
-                 batch_points: int = BATCH_POINTS, chunk_steps: int = 1):
+                 batch_points: int = BATCH_POINTS, chunk_steps: int = 1,
+                 box_override=None):
         self.entries = scan_paths(paths)
         if not self.entries:
             raise FileNotFoundError(f"no point cloud files under {paths!r}")
         self.device = torch.device(device if device is not None else "cpu")
         self.step_points = step_points
         self.chunk_steps = max(1, chunk_steps)
-        self.box_min = np.min([e.box_min for e in self.entries], axis=0)
-        self.box_max = np.max([e.box_max for e in self.entries], axis=0)
+        if box_override is not None:
+            # out-of-core bricks: coordinates are rebased into a wider world
+            # box shared by all bricks, so their octrees share one cube
+            self.box_min = np.asarray(box_override[0], np.float64)
+            self.box_max = np.asarray(box_override[1], np.float64)
+        else:
+            self.box_min = np.min([e.box_min for e in self.entries], axis=0)
+            self.box_max = np.max([e.box_max for e in self.entries], axis=0)
         self.total_points = sum(e.num_points for e in self.entries)
 
         self._batches = collections.deque()
@@ -155,21 +171,46 @@ class PointStream:
                     break
                 ref = self._batches.popleft()
             t0 = time.perf_counter()
-            e = ref.entry
-            shift = (e.box_min + translation).astype(np.float32)
-            xyz, rgba = simlod.read_points(e.path, ref.first, ref.count)
-            cols = (xyz[:, 0] + shift[0], xyz[:, 1] + shift[1],
-                    xyz[:, 2] + shift[2], rgba.view(np.int32))
+            cols, nbytes = self._decode(ref, translation)
             with self._stats_lock:
                 self.t_decode += time.perf_counter() - t0
                 self.points_loaded += ref.count
-                self.bytes_read += ref.count * simlod.POINT_BYTES
+                self.bytes_read += nbytes
             if not self._put(self._loaded, (ref.seq, cols)):
                 break
         with self._active_lock:
             self._n_active -= 1
             if self._n_active == 0:
                 self._put(self._loaded, None)
+
+    @staticmethod
+    def _decode(ref: BatchRef, translation):
+        """One batch -> ((x, y, z f32, rgba i32) numpy columns, bytes read)."""
+        e, n = ref.entry, ref.count
+        cols = (np.empty(n, np.float32), np.empty(n, np.float32),
+                np.empty(n, np.float32), np.empty(n, np.int32))
+        if e.kind == "simlod":
+            shift = (e.box_min + translation).astype(np.float32)
+            mm = np.memmap(e.path, dtype=np.uint8, mode="r",
+                           offset=simlod.HEADER_BYTES)
+            raw = mm[ref.first * simlod.POINT_BYTES:
+                     (ref.first + n) * simlod.POINT_BYTES]
+            native.decode_simlod_cols(raw, n, shift, *cols)
+            return cols, n * simlod.POINT_BYTES
+        hdr = e.header
+        bpp = hdr.bytes_per_point
+        if e.kind == "las":
+            mm = np.memmap(e.path, dtype=np.uint8, mode="r",
+                           offset=hdr.offset_to_points)
+            raw = mm[ref.first * bpp:(ref.first + n) * bpp]
+            nbytes = n * bpp
+        else:
+            raw = laz.read_records(e.path, hdr, ref.first, n).reshape(-1)
+            nbytes = n * 8   # compressed estimate
+        native.decode_las_cols(raw, n, bpp, las.RGB_OFFSET.get(hdr.format, -1),
+                               hdr.scale, hdr.offset,
+                               np.asarray(translation, np.float64), *cols)
+        return cols, nbytes
 
     def _put(self, q: queue.Queue, item) -> bool:
         """Backpressured put that gives up once the stream is stopped."""

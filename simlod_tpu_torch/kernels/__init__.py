@@ -51,6 +51,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"simlod_kernels-{h.hexdigest()[:16]}.so"
 
 
+def compile_to(out: Path, cmd: list[str]) -> None:
+    """Run the compiler command `cmd -o <tmp>` and move the per-process
+    temporary file into `out`, so that concurrent processes never load a
+    half-written library. A failed build raises."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [*cmd, "-o", str(tmp)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{Path(cmd[0]).name} failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the library (if not built yet); returns its path."""
     global build_seconds
@@ -58,16 +72,9 @@ def build() -> Path:
     if out.exists():
         build_seconds = 0.0
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(SRC_DIR.glob("*.cu")))]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
+    compile_to(out, [_nvcc(), *NVCC_FLAGS,
+                     *map(str, sorted(SRC_DIR.glob("*.cu")))])
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -112,3 +112,14 @@ def key_words_at_level(w0, w1, w2, level):
         off += nlev
     k0, k1, k2 = words
     return k0, k1, k2 | level
+
+
+def key_words_decode(k0, k1, k2l):
+    """Inverse of key_words_at_level: (level, local 128^3 cell coords cx, cy,
+    cz); the per-axis prefix is q >> (MAX_DEPTH + 1 - level) and its low
+    GRID_BITS bits are the cell within the owning node."""
+    level = k2l & 31
+    qx, qy, qz = decode(k0, k1, k2l & ~31)
+    shift = (C.MAX_DEPTH + 1) - level
+    m = C.GRID_SIZE - 1
+    return level, (qx >> shift) & m, (qy >> shift) & m, (qz >> shift) & m

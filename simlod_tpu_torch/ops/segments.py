@@ -31,6 +31,52 @@ def roll1(x: torch.Tensor) -> torch.Tensor:
     return torch.roll(x, 1, 0)
 
 
+def run_starts(vals: torch.Tensor,
+               valid: torch.Tensor | None = None) -> torch.Tensor:
+    """True where a run of equal adjacent values starts (row 0 included); with
+    `valid`, invalid rows (compacted to the tail) never start a run."""
+    starts = vals != roll1(vals)
+    starts[0] = True
+    return starts & valid if valid is not None else starts
+
+
+def expand_segments(sel_counts: torch.Tensor, out_len: int):
+    """Ragged expansion: segments of `sel_counts[i]` elements laid out densely
+    in `out_len` rows; row j holds (segment index, element within segment).
+
+    Returns (seg_of_row, elem_of_row, row_valid, total). Rows past the total are
+    invalid and, like the JAX package's, carry the last non-empty segment
+    (segment 0 when every segment is empty). The owning segment of a row is a
+    binary search over the inclusive prefix counts (the JAX package scatters
+    markers and carries them with cummax)."""
+    ends = cumsum32(sel_counts)
+    total = ends[-1] if ends.shape[0] else torch.zeros(
+        (), dtype=torch.int32, device=sel_counts.device)
+    j = iota(out_len, sel_counts.device)
+    seg = torch.searchsorted(ends, torch.minimum(j, total - 1),
+                             right=True).to(torch.int32)
+    elem = j - (ends - sel_counts)[seg.long()]
+    return seg, elem, j < total, total
+
+
+def run_reduce_sum(values: torch.Tensor, starts: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Sum `values` ([n] or [n, k]) over the runs that `starts` opens, masked
+    by `valid`; each run-start row holds its run's sum (other rows hold the sum
+    of the run they lie in; rows before the first start hold 0). Sums are
+    formed in int64 with one index_add_ over run ids (a prefix count), and
+    returned in the values' dtype."""
+    n = values.shape[0]
+    rid = cumsum32(starts.to(torch.int32)) - 1
+    v = values.to(torch.int64)
+    mask = valid if v.ndim == 1 else valid[:, None]
+    v = torch.where(mask, v, 0)
+    acc = torch.zeros((n + 1,) + tuple(v.shape[1:]), dtype=torch.int64,
+                      device=values.device)
+    acc.index_add_(0, torch.where(rid >= 0, rid, n).long(), v)
+    return acc[torch.where(rid >= 0, rid, n).long()].to(values.dtype)
+
+
 def take_last(markers: torch.Tensor, sentinel: int = -1) -> torch.Tensor:
     """Each row receives the most recent non-sentinel value at or before it
     (sentinel before the first). The k-th marker lands in slot k of a small

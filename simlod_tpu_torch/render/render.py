@@ -1,10 +1,12 @@
 """Frame assembly (port of simlod_tpu/render/render.py; the reference's
 kernel_render, render.cu:1084-1345): LOD selection -> sample gathering ->
-rasterization -> EDL -> RGBA image + visible stats, on the exact path and on
-the pooled (screen-budgeted) path through render/drawpool.py.
+rasterization -> optional box overlays -> EDL -> RGBA image + visible stats, on
+the exact path and on the pooled (screen-budgeted) path through
+render/drawpool.py. `composite_frames` depth-min blends frames rendered
+separately (out-of-core bricks) before one EDL pass.
 
 The JAX package scans K frames in one program (render_frames*); here that is a
-Python loop. The line overlays and composite_frames are not ported yet.
+Python loop.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from ..config import EngineConfig, Uniforms
 from ..octree.structures import OctreeState
-from . import drawpool, raster, raster_tiles, visibility
+from . import drawpool, lines, raster, raster_tiles, visibility
 
 
 class FrameStats(NamedTuple):
@@ -67,14 +69,24 @@ def frame_samples(cfg: EngineConfig, state: OctreeState, uniforms: Uniforms,
 
 
 def _rasterize(cfg: EngineConfig, uniforms: Uniforms, width: int, height: int,
-               sets):
-    """With cfg.use_tile_raster (the default) the frame goes through
-    raster_tiles on every device; on the card that is the CUDA tile kernel."""
-    if bool(uniforms.show_bounding_box):
-        raise NotImplementedError("line overlays: later PR")
+               sets, state: OctreeState, emitted: torch.Tensor):
+    """Draw the sample sets, then (with show_bounding_box) the emitted nodes'
+    boxes and the frozen-camera frustum over them. With cfg.use_tile_raster
+    (the default) the samples go through raster_tiles on every device; on the
+    card that is the CUDA tile kernel."""
     if cfg.use_tile_raster:
-        return raster_tiles.rasterize_tiles(cfg, uniforms, width, height, sets)
-    return raster.rasterize(cfg, uniforms, width, height, sets)
+        color, depth = raster_tiles.rasterize_tiles(cfg, uniforms, width,
+                                                    height, sets)
+    else:
+        color, depth = raster.rasterize(cfg, uniforms, width, height, sets)
+    if not bool(uniforms.show_bounding_box):
+        return color, depth
+    # the frustum rides the same flag and draw list as in the reference
+    # (render.cu:1197-1229)
+    box = lines.node_box_lines(state, emitted, cfg.max_render_lines)
+    fru = lines.frustum_lines(uniforms)
+    return lines.rasterize_lines(cfg, uniforms, width, height, color, depth,
+                                 *(torch.cat([p, q]) for p, q in zip(box, fru)))
 
 
 def _frame_stats(vis, truncated) -> FrameStats:
@@ -97,7 +109,8 @@ def render_components(cfg: EngineConfig, state: OctreeState, width: int,
     depth_bits i32 [H*W], FrameStats)."""
     vis, sets, over = frame_samples(cfg, state, uniforms, point_window,
                                     voxel_window, node_window, seg_window)
-    color, depth = _rasterize(cfg, uniforms, width, height, sets)
+    color, depth = _rasterize(cfg, uniforms, width, height, sets, state,
+                              vis.emitted)
     pw = ((point_window or cfg.max_render_points) // 128) * 128
     vw = ((voxel_window or cfg.max_render_voxels) // 128) * 128
     trunc = (vis.num_visible_points > pw) | (vis.num_visible_voxels > vw) | over
@@ -198,7 +211,8 @@ def render_components_pooled(cfg: EngineConfig, state: OctreeState,
     vis, sets, trunc = pooled_frame_samples(
         cfg, state, pool, uniforms, pool_pw, pool_vw, exact_pw, exact_vw,
         node_window, seg_window)
-    color, depth = _rasterize(cfg, uniforms, width, height, sets)
+    color, depth = _rasterize(cfg, uniforms, width, height, sets, state,
+                              vis.emitted)
     return color, depth, _frame_stats(vis, trunc)
 
 
@@ -262,6 +276,23 @@ def probe_visible_counts(state: OctreeState, uniforms: Uniforms):
     return vis.num_visible_points, vis.num_visible_voxels
 
 
+def composite_frames(colors: torch.Tensor, depths: torch.Tensor,
+                     uniforms: Uniforms, width: int, height: int):
+    """Depth-min composite of separately rendered (colour, depth) planes plus
+    one EDL pass: equal to rendering their union state, since the u64
+    atomicMin winner rule is associative (reference blend, render.cu:95-99).
+
+    colors/depths are [K, H*W] stacks (u32 colour bits / f32 depth bits as
+    int32; positive-float bits order like the floats, so the integer min is the
+    depth test, and ties go to the lower plane index). Returns (image i32
+    [H, W], depth i32 [H*W])."""
+    k = torch.argmin(depths, dim=0, keepdim=True)
+    depth = torch.take_along_dim(depths, k, dim=0)[0]
+    color = torch.take_along_dim(colors, k, dim=0)[0]
+    color = raster.edl(color, depth, uniforms, width, height)
+    return color.reshape(height, width), depth
+
+
 def image_to_rgba8(img) -> np.ndarray:
     """u32 abgr words (or their int32 bit patterns) -> [H, W, 4] uint8."""
     if isinstance(img, torch.Tensor):
@@ -271,3 +302,13 @@ def image_to_rgba8(img) -> np.ndarray:
     for k in range(4):
         out[..., k] = (img >> (8 * k)) & 0xFF
     return out
+
+
+def write_ppm(path: str, img) -> None:
+    """Minimal dependency-free image writer (binary PPM, RGB), flipped from
+    GL-style y-up rows to image y-down."""
+    rgba = image_to_rgba8(img)
+    h, w = rgba.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(rgba[::-1, :, :3].tobytes())

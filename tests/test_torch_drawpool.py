@@ -270,11 +270,7 @@ def test_render_frames_pooled_equals_single_frames(scene):
                                                    WIN, WIN)[0])
 
 
-def test_engine_pooled_render_matches_exact():
-    """Engine.render with point_budget > 0 after a load (test_drawpool.py's
-    engine test, on the port): a clearing budget reproduces the exact frame,
-    a decimating one renders."""
-    xyz, rgba = _cloud(4000, seed=5)
+def _loaded_engine(xyz, rgba):
     cfg = dataclasses.replace(TCFG, max_render_points=1 << 18,
                               max_render_voxels=1 << 18)
     eng = TEngine(cfg, TSet(enable_edl=False, min_node_size=8.0))
@@ -288,6 +284,14 @@ def test_engine_pooled_render_matches_exact():
         eng.ingest(*(torch.from_numpy(np.ascontiguousarray(part[:, i]))
                      for i in range(3)),
                    torch.from_numpy(col.view(np.int32)), n)
+    return eng
+
+
+def test_engine_pooled_render_matches_exact():
+    """Engine.render with point_budget > 0 after a load (test_drawpool.py's
+    engine test, on the port): a clearing budget reproduces the exact frame,
+    a decimating one renders."""
+    eng = _loaded_engine(*_cloud(4000, seed=5))
     img0, _ = eng.render(W, H)
     eng.settings.point_budget = 1e6
     img1, st1 = eng.render(W, H)
@@ -297,3 +301,27 @@ def test_engine_pooled_render_matches_exact():
     img2, _ = eng.render(W, H)
     assert img2.shape == img0.shape
     assert (img2.numpy() != C.BACKGROUND_COLOR).sum() > 50
+
+
+def test_engine_pooled_frame_follows_filter_colors():
+    """filter_colors drops the draw pool, which holds its own copy of the
+    voxel colours: a pooled frame after the filter equals the exact frame
+    under a clearing budget (bit-equal), not the pooled frame before it. The
+    points sit in 216 tight clusters, so that a voxel's filtered colour (the
+    average of its points) differs from its sampled one."""
+    rng = np.random.default_rng(7)
+    xyz = (rng.integers(0, 6, (4000, 3)) / 6 + 0.08
+           + rng.random((4000, 3)) * 0.01).astype(np.float32)
+    rgba = (rng.integers(0, 1 << 24, 4000, dtype=np.uint32)
+            | np.uint32(0xFF000000))
+    eng = _loaded_engine(xyz, rgba)
+    eng.settings.min_node_size = 20.0               # coarse enough for voxels
+    eng.settings.point_budget = 1e6
+    before, _ = eng.render(W, H)
+    assert eng._draw_pool is not None
+    eng.filter_colors()
+    pooled, _ = eng.render(W, H)
+    eng.settings.point_budget = 0.0
+    exact, _ = eng.render(W, H)
+    assert not torch.equal(before, exact)            # the filter shows
+    assert torch.equal(pooled, exact)

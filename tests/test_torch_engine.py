@@ -18,7 +18,7 @@ from simlod_tpu.engine import Engine as JEngine
 from simlod_tpu.render.render import render_frame as j_render_frame
 from simlod_tpu_torch.config import EngineConfig as TCfg, Settings as TSet
 from simlod_tpu_torch.engine import Engine as TEngine
-from simlod_tpu_torch.formats import simlod, synthetic
+from simlod_tpu_torch.formats import las, laz, simlod, synthetic
 from simlod_tpu_torch.io.streaming import PointStream, scan_paths
 from simlod_tpu_torch.octree.structures import state_from_numpy
 from simlod_tpu_torch.render.render import image_to_rgba8, render_frame
@@ -143,7 +143,14 @@ def test_point_stream_delivers_the_file_in_order(cloud_file):
 
 
 def test_las_input_not_ported_yet(tmp_path):
-    p = tmp_path / "a.las"
-    p.write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        scan_paths([str(p)])
+    """LAS and LAZ input are ported now: scan_paths accepts both (a file that
+    is not LAS still raises, as it does in the JAX package)."""
+    xyz, rgba = synthetic.terrain(1000, seed=4)
+    las.write(str(tmp_path / "a.las"), xyz, rgba)
+    laz.write(str(tmp_path / "b.laz"), xyz, rgba)
+    entries = scan_paths([str(tmp_path)])
+    assert [(e.kind, e.num_points) for e in entries] == [("las", 1000),
+                                                         ("laz", 1000)]
+    (tmp_path / "c.las").write_bytes(b"")
+    with pytest.raises(ValueError):
+        scan_paths([str(tmp_path / "c.las")])

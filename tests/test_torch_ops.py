@@ -119,3 +119,51 @@ def test_ragged_plan_gather_broadcast(out_len):
                   tr.broadcast_i32(tp, torch.from_numpy(per_seg)))):
         np.testing.assert_array_equal(np.asarray(a)[v], b.numpy()[v])
     assert jr.window_for(1000, 17) == tr.window_for(1000, 17)
+
+
+def test_morton_key_words_decode():
+    rng = np.random.default_rng(6)
+    q = _q(rng, 4096)
+    lvl = rng.integers(0, 20, 4096).astype(np.int32)
+    jk = jm.key_words_at_level(*jm.encode(*map(jnp.asarray, q)),
+                               jnp.asarray(lvl))
+    tk = [torch.from_numpy(np.array(k)) for k in jk]
+    for a, b in zip(jm.key_words_decode(*jk), tm.key_words_decode(*tk)):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("out_len", [3000, 700, 0])   # covers / truncates / empty
+def test_segments_expand_segments(out_len):
+    rng = np.random.default_rng(7)
+    cnt = np.where(rng.random(400) < 0.3, 0,
+                   rng.integers(1, 12, 400)).astype(np.int32)
+    cnt[-5:] = 0                                         # trailing empties
+    for c in (cnt, np.zeros(50, np.int32)):
+        j = js.expand_segments(jnp.asarray(c), out_len)
+        t = ts.expand_segments(torch.from_numpy(c), out_len)
+        for a, b in zip(j[:3], t[:3]):       # rows past the total included
+            _eq(a, b)
+        assert int(j[3]) == int(t[3])
+
+
+def test_segments_run_starts_and_run_reduce_sum():
+    rng = np.random.default_rng(8)
+    n = 4000
+    vals = np.sort(rng.integers(0, 300, n)).astype(np.int32)
+    valid = np.arange(n) < 3500                  # invalid rows at the tail
+    x = rng.integers(0, 256, n).astype(np.int32)
+    js_st = js.run_starts(jnp.asarray(vals), jnp.asarray(valid))
+    ts_st = ts.run_starts(torch.from_numpy(vals), torch.from_numpy(valid))
+    _eq(js_st, ts_st)
+    _eq(js.run_starts(jnp.asarray(vals)), ts.run_starts(torch.from_numpy(vals)))
+    st = np.asarray(js_st)
+    j = np.asarray(js.run_reduce_sum(jnp.asarray(x), js_st, jnp.asarray(valid)))
+    t = ts.run_reduce_sum(torch.from_numpy(x), ts_st, torch.from_numpy(valid))
+    np.testing.assert_array_equal(j[st], t.numpy()[st])   # run-start rows
+    # the [n, k] form sums every column at once
+    x2 = np.stack([x, 2 * x + 1], 1)
+    t2 = ts.run_reduce_sum(torch.from_numpy(x2), ts_st, torch.from_numpy(valid))
+    np.testing.assert_array_equal(t2.numpy()[st, 0], j[st])
+    j1 = np.asarray(js.run_reduce_sum(jnp.asarray(x2[:, 1]), js_st,
+                                      jnp.asarray(valid)))
+    np.testing.assert_array_equal(t2.numpy()[st, 1], j1[st])

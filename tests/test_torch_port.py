@@ -24,16 +24,23 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.config",
            "simlod_tpu_torch.constants", "simlod_tpu_torch.engine",
-           "simlod_tpu_torch.kernels", "simlod_tpu_torch.formats.simlod",
+           "simlod_tpu_torch.kernels", "simlod_tpu_torch.native",
+           "simlod_tpu_torch.outofcore", "simlod_tpu_torch.formats.las",
+           "simlod_tpu_torch.formats.laz", "simlod_tpu_torch.formats.simlod",
            "simlod_tpu_torch.formats.synthetic", "simlod_tpu_torch.io.streaming",
-           "simlod_tpu_torch.octree.build", "simlod_tpu_torch.octree.structures",
+           "simlod_tpu_torch.octree.build",
+           "simlod_tpu_torch.octree.colorfilter",
+           "simlod_tpu_torch.octree.inspect",
+           "simlod_tpu_torch.octree.structures",
            "simlod_tpu_torch.ops.morton", "simlod_tpu_torch.ops.ragged",
            "simlod_tpu_torch.ops.segments", "simlod_tpu_torch.render.camera",
            "simlod_tpu_torch.render.drawpool",
-           "simlod_tpu_torch.render.frustum", "simlod_tpu_torch.render.raster",
+           "simlod_tpu_torch.render.frustum", "simlod_tpu_torch.render.lines",
+           "simlod_tpu_torch.render.raster",
            "simlod_tpu_torch.render.raster_tiles",
            "simlod_tpu_torch.render.render",
-           "simlod_tpu_torch.render.visibility"]
+           "simlod_tpu_torch.render.visibility",
+           "simlod_tpu_torch.tools.las2simlod"]
 
 
 def test_port_never_imports_jax():
@@ -60,7 +67,8 @@ def test_every_port_module_is_listed():
                           else mod)
     assert found - {"simlod_tpu_torch.formats", "simlod_tpu_torch.io",
                     "simlod_tpu_torch.octree", "simlod_tpu_torch.ops",
-                    "simlod_tpu_torch.render"} == set(MODULES)
+                    "simlod_tpu_torch.render",
+                    "simlod_tpu_torch.tools"} == set(MODULES)
 
 
 def _stream(n_tiles=4):
@@ -101,6 +109,18 @@ def test_engine_on_cuda_raises_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(device="cuda")
+
+
+def test_native_build_has_no_fallback(monkeypatch, tmp_path):
+    """Without a C compiler the host codecs' build raises; the LAS decode has
+    no numpy fallback on its main path."""
+    from simlod_tpu_torch import native
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CC", raising=False)
+    with pytest.raises(RuntimeError, match="compiler"):
+        native.load()
 
 
 def test_kernel_build_has_no_fallback(monkeypatch, tmp_path):
