@@ -11,10 +11,15 @@ Phases (every one must pass; a failure raises and exits non-zero):
      1 per channel of each other and of the goldens in tests/golden/;
   3. bulk path: a seeded synthetic terrain of N points (default 36M, the size
      of the Morro Bay file) written as .simlod, then Engine(cfg=None).open ->
-     load_all -> render(1920, 1080) (exact);
-  4. kernel against plain version: the packed, sorted sample stream of that
-     frame through the CUDA tile kernel and its plain PyTorch version, in both
-     shading modes, bit-equal, timed with CUDA events after a warm-up;
+     load_all -> render(1920, 1080) (exact, through the splat kernel); the
+     same frame then through both routes in turn (the splat route and the
+     tile route, use_tile_raster=True), timed alike and bit-equal;
+  4. kernels against plain versions, in both shading modes, bit-equal, timed
+     with CUDA events after a warm-up: that frame's columns through the CUDA
+     splat kernel and its plain PyTorch version; its packed, sorted stream
+     through the CUDA tile kernel and its plain version; the stage time of
+     each route (columns + splat, pack_samples + tile resolve) on the same
+     sample sets;
   5. small streamed reference: the 60k file through Engine.frame(160, 120)
      until the stream drains (one step per item, frame_budget_ms 0) on the GPU
      and the CPU: with point_budget 0 equal Stats and images within 1 per
@@ -25,9 +30,10 @@ Phases (every one must pass; a failure raises and exits non-zero):
      open(chunk_steps=1) -> frame(1920, 1080) until the stream drains, with
      point_budget 1.0 and frame_budget_ms 50 and the orbit yaw advanced 0.03
      rad per frame; the tree must equal phase 3's;
-  7. post-load pooled vs exact 1080p frame on that loaded state;
-  8. kernel against plain version on the pooled frame's four-set stream (pool
-     points, pool voxels, exact points, exact voxels), both shading modes;
+  7. post-load pooled vs exact 1080p frame on that loaded state, each also
+     through both routes in turn (bit-equal images, both routes timed);
+  8. kernels against plain versions on the pooled frame's four sample sets
+     (pool points, pool voxels, exact points, exact voxels), both modes;
   9. small references with the new modules, GPU against CPU: the 60k file with
      show_bounding_box on (exact and pooled frames within 1 per channel),
      filter_colors on its state (voxel colours equal per node and cell), and
@@ -36,29 +42,35 @@ Phases (every one must pass; a failure raises and exits non-zero):
      channel);
  10. LAS bulk path: phase 3's terrain split stably into 4 x-quadrant tiles,
      written as .las (and the same records as .laz), the .las directory through
-     Engine(cfg=None).open -> load_all -> render(1920, 1080); kernel against
-     plain version on that frame's stream;
+     Engine(cfg=None).open -> load_all -> render(1920, 1080), then through
+     both routes in turn; kernels against plain versions on that frame's
+     sample sets;
  11. LAZ streamed path: the .laz directory through the simultaneous loop
      (open(chunk_steps=1) -> frame(1920, 1080) until drained, point_budget 1.0,
      frame_budget_ms 50, yaw +0.03 rad per frame); the tree must equal phase
      10's and each LAZ file must be decoded exactly once;
  12. colour filter and overlays on phase 10's state: filter_colors (seconds,
      host syncs, unchanged node and voxel counts), exact and pooled 1080p frames
-     with show_bounding_box off and on;
+     with show_bounding_box off and on, those with boxes also through both
+     routes in turn;
  13. out-of-core on the 4 LAS tiles with a device point pool sized for one
      tile: build_all, the composited 1080p frame held against a depth-min
      composite of the per-brick planes computed on the host, a closeup
-     auto_page and one frame.
+     auto_page and one frame, each frame also through both routes in turn;
+     kernels against plain versions on the paged brick's sample sets.
 Every kernel launch counter is zeroed just before each main path (phases 3, 6,
-7, 10, 11, 12 and 13) and read just after.
+7, 10, 11, 12 and 13) and read just after: the splat kernel must have run on
+every one, the tile kernel on the tile-route frames of phases 3, 7, 10, 12
+and 13.
 
-It prints a JSON line with the kernels' launches, errors and times, the card
-line, and as its last line {"ok": true, "device": {...}}. Without a CUDA
-device it exits 1.
+It prints a JSON line with the kernels' launches, errors, times and bounds,
+the card line, and as its last line {"ok": true, "device": {...}}. Without a
+CUDA device it exits 1.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -393,6 +405,14 @@ def coverage(img, C) -> float:
     return float((rgb != (C.BACKGROUND_COLOR & 0xFFFFFF)).mean())
 
 
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA's data sheet)
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least time to move `nbytes` through device memory."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def kernel_vs_plain(packed, what: str, card: str):
     """The tile kernel and its plain version on one packed stream: bit-equal,
     then both timed with CUDA events; (max abs err, ms, plain ms)."""
@@ -407,10 +427,133 @@ def kernel_vs_plain(packed, what: str, card: str):
           f"tile kernel != plain version ({what}, max err {err})")
     ms = time_ms(lambda: raster_tiles.tile_resolve(*packed))
     plain_ms = time_ms(lambda: raster_tiles.tile_resolve_reference(*packed))
-    say(f"tile_resolve, {what}: {packed[0].shape[0]} samples, {packed[3]} "
-        f"tiles: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bit-equal; "
-        f"card: {card}")
-    return err, ms, plain_ms
+    S, n_tiles = packed[0].shape[0], packed[3]
+    # the 12 B a sample the function needs (flags|pixel, depth bits, colour;
+    # not the pad word of the kernel's 16-byte loads), the tile offsets and
+    # the mode read once, each pixel's colour and depth written once
+    bound = bound_ms(S * 12 + (n_tiles + 1) * 4 + 4 + n_tiles * 512 * 8)
+    say(f"tile_resolve, {what}: {S} samples, {n_tiles} "
+        f"tiles: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms, bit-equal; card: {card}")
+    return err, ms, plain_ms, bound
+
+
+def route_pair(eng, img, key: str, tile_launches: dict, card: str,
+               render=None, reps: int = 5):
+    """Render the current frame of `eng` (an Engine or an OutOfCoreEngine)
+    through both routes on the same state, timed the same way: the splat
+    route (default) and the tile route (use_tile_raster=True: sort, prepass,
+    tile kernel), one warm-up each, then `reps` rounds that alternate which
+    route goes first. Every image must equal `img` bit for bit. Adds the tile
+    kernel's launches to tile_launches[key]; returns the median wall ms of
+    (splat route, tile route). `render` draws one frame (default: eng.render
+    at W x H)."""
+    import numpy as np
+    import torch
+    from simlod_tpu_torch.render import raster_tiles
+    render = render or (lambda: eng.render(W, H))
+    cfgs = {False: eng.cfg, True: dataclasses.replace(eng.cfg,
+                                                      use_tile_raster=True)}
+    ms = {False: [], True: []}
+    raster_tiles.tile_resolve.launches = 0
+    for i in range(reps + 1):
+        for tile in ((False, True) if i % 2 else (True, False)):
+            eng.cfg = cfgs[tile]
+            t1 = time.perf_counter()
+            out, _ = render()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t1) * 1e3
+            if i:
+                ms[tile].append(dt)
+            route = "tile" if tile else "splat"
+            check(torch.equal(out, img), f"{key}: the {route} route's frame "
+                  "differs from the splat route's first frame")
+    eng.cfg = cfgs[False]
+    n = raster_tiles.tile_resolve.launches
+    tile_launches[key] = tile_launches.get(key, 0) + n
+    check(n >= reps + 1,
+          f"{key}: the tile route did not go through the tile kernel")
+    med = float(np.median(ms[False])), float(np.median(ms[True]))
+    say(f"{key}: frame median, routes interleaved: splat {med[0]:.2f} ms "
+        f"({', '.join(f'{t:.2f}' for t in ms[False])}), tile {med[1]:.2f} ms "
+        f"({', '.join(f'{t:.2f}' for t in ms[True])}); bit-equal; {n} tile "
+        f"kernel launches; card: {card}")
+    return med
+
+
+def device_profile(render, what: str, card: str, reps: int = 3):
+    """torch.profiler over `reps` frames after a warm-up: device busy time
+    per frame (the union of kernel and copy intervals), the device's idle
+    share of the profiled wall time, and kernels per frame. Profiled wall
+    times are inflated by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    render()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            render()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        say(f"profile, {what}: torch.profiler recorded no device time (not "
+            f"measured); card: {card}")
+        return None
+    say(f"profile, {what}: device busy {busy / reps / 1e3:.2f} ms per frame, "
+        f"idle {1 - busy / wall_us:.1%} of {wall_us / reps / 1e3:.2f} ms "
+        f"profiled wall per frame, {len(spans) / reps:.0f} device kernels and "
+        f"copies per frame; card: {card}")
+    return busy / reps / 1e3, 1 - busy / wall_us, len(spans) / reps
+
+
+def splat_vs_plain(cfg, u, sets, what: str, card: str):
+    """The splat kernel and its plain version on one frame's columns:
+    bit-equal, both timed with CUDA events. Then the stage time of each route
+    on the same sample sets: columns + splat kernel, and pack_samples (sort +
+    prepass) + tile kernel.
+    Returns (max abs err, ms, plain ms, bound ms, stage ms, tile stage ms)."""
+    import torch
+    from simlod_tpu_torch.render import raster, raster_tiles
+    npx = W * H
+    cols = raster.splat_columns(cfg, u, W, H, sets, npx)
+    mode = u.use_high_quality_shading.to(torch.int32).reshape(1)
+    kc, kd = raster.splat_resolve(*cols, mode, npx)
+    rc, rd = raster.splat_resolve_reference(*cols, mode, npx)
+    torch.cuda.synchronize()
+    err = max(int((kc.long() - rc.long()).abs().max()),
+              int((kd.long() - rd.long()).abs().max()))
+    check(torch.equal(kc, rc) and torch.equal(kd, rd),
+          f"splat kernel != plain version ({what}, max err {err})")
+    ms = time_ms(lambda: raster.splat_resolve(*cols, mode, npx))
+    plain_ms = time_ms(lambda: raster.splat_resolve_reference(*cols, mode,
+                                                              npx))
+    stage = time_ms(lambda: raster.splat_resolve(
+        *raster.splat_columns(cfg, u, W, H, sets, npx), mode, npx))
+    tile_stage = time_ms(lambda: raster_tiles.tile_resolve(
+        *raster_tiles.pack_samples(cfg, u, W, H, sets)))
+    S = cols[0].shape[0]
+    hqs = bool(mode.item())
+    # the columns and the mode read once, each pixel's colour and depth
+    # written once; `traffic` is what this design moves (its clear, the
+    # second pass over the rows with HQS, the resolve's reads)
+    bound = bound_ms(S * 12 + 4 + npx * 8)
+    traffic = bound_ms((S * 24 + npx * 56) if hqs else (S * 12 + npx * 24))
+    say(f"splat_resolve, {what}: {S} rows: kernel {ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; "
+        f"bound {bound:.4f} ms (design traffic {traffic:.4f} ms); stage: "
+        f"columns + splat {stage:.4f} ms vs pack_samples + tile resolve "
+        f"{tile_stage:.4f} ms; bit-equal; card: {card}")
+    return err, ms, plain_ms, bound, stage, tile_stage
 
 
 def main(argv=None) -> int:
@@ -429,9 +572,10 @@ def main(argv=None) -> int:
     from simlod_tpu_torch.config import Settings
     from simlod_tpu_torch.engine import Engine
     from simlod_tpu_torch.formats import simlod, synthetic
-    from simlod_tpu_torch.render import raster_tiles
+    from simlod_tpu_torch.render import raster, raster_tiles
     from simlod_tpu_torch.render.render import (frame_samples,
                                                 pooled_frame_samples)
+    splat, tile = raster.splat_resolve, raster_tiles.tile_resolve
 
     dev = torch.device("cuda")
     # --- phase 1: card and build ---
@@ -439,8 +583,9 @@ def main(argv=None) -> int:
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)}")
-    kernels.build()
-    say(f"kernel build: {kernels.build_seconds:.2f} s ({kernels.library_path().name})")
+    lib = kernels.build()
+    say(f"kernel build, one nvcc per source in parallel, then one link: "
+        f"{kernels.build_seconds:.2f} s ({lib.name})")
 
     with tempfile.TemporaryDirectory() as tmp:
         # --- phase 2: small reference ---
@@ -455,8 +600,8 @@ def main(argv=None) -> int:
         say(f"terrain {n} points written in {time.perf_counter() - t0:.1f} s "
             f"({os.path.getsize(path) / 1e6:.0f} MB)")
 
-        launches = {}
-        raster_tiles.tile_resolve.launches = 0
+        launches, tile_launches = {}, {}
+        splat.launches = tile.launches = 0
         eng = Engine(cfg=None, settings=Settings(), device=dev)
         eng.open([path])
         t0 = time.perf_counter()
@@ -471,7 +616,8 @@ def main(argv=None) -> int:
             t1 = time.perf_counter()
             img, stats = eng.render(W, H)
             frame_ms.append((time.perf_counter() - t1) * 1e3)
-        launches["bulk_exact"] = raster_tiles.tile_resolve.launches
+        launches["bulk_exact"] = splat.launches
+        check(tile.launches == 0, "the default route launched the tile kernel")
         rep = eng.report()
         bulk_tree = {k: rep[k] for k in TREE}
 
@@ -485,7 +631,7 @@ def main(argv=None) -> int:
         cover = coverage(img, C)
         check(cover > 0.05, f"only {cover:.3%} of pixels drawn")
         check(launches["bulk_exact"] > 0,
-              "the frame did not go through the tile kernel")
+              "the frame did not go through the splat kernel")
         per_step = load_syncs / max(rep["steps"], 1)
         say(f"load_all: {load_s:.2f} s = {n / load_s / 1e6:.2f} MP/s; "
             f"nodes {rep['num_nodes']}, voxels {rep['num_voxels']}, "
@@ -496,11 +642,19 @@ def main(argv=None) -> int:
             f"{float(np.median(frame_ms)):.2f} ms ({', '.join(f'{t:.2f}' for t in frame_ms)}); "
             f"visible points {stats.num_visible_points}, voxels "
             f"{stats.num_visible_voxels}; truncated {stats.render_truncated}; "
-            f"{cover:.1%} of pixels drawn; tile kernel launches "
+            f"{cover:.1%} of pixels drawn; splat kernel launches "
             f"{launches['bulk_exact']}; card: {card}")
+        route_ms = {"exact 36M": route_pair(eng, img, "bulk_exact",
+                                            tile_launches, card)}
+        device_profile(lambda: eng.render(W, H),
+                       "exact 1080p frame, splat route", card)
+        eng.cfg = dataclasses.replace(eng.cfg, use_tile_raster=True)
+        device_profile(lambda: eng.render(W, H),
+                       "exact 1080p frame, tile route", card)
+        eng.cfg = dataclasses.replace(eng.cfg, use_tile_raster=False)
 
-        # --- phase 4: kernel against plain version on this frame's stream ---
-        rows = {}
+        # --- phase 4: kernels against plain versions on this frame ---
+        rows, srows = {}, {}
         for hqs in (True, False):
             eng.settings.use_high_quality_shading = hqs
             u = eng.uniforms(W, H)
@@ -508,6 +662,9 @@ def main(argv=None) -> int:
             rows[("exact", hqs)] = kernel_vs_plain(
                 raster_tiles.pack_samples(eng.cfg, u, W, H, sets),
                 f"exact frame, hqs={hqs}", card)
+            srows[("exact", hqs)] = splat_vs_plain(
+                eng.cfg, u, sets, f"exact frame, hqs={hqs}", card)
+        eng.settings.use_high_quality_shading = True
         eng.stream.stop()
         del eng, img, stats
         gc.collect()
@@ -520,7 +677,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        raster_tiles.tile_resolve.launches = 0
+        splat.launches = 0
         eng = Engine(cfg=None, settings=Settings(point_budget=1.0,
                                                  frame_budget_ms=50.0),
                      device=dev)
@@ -535,7 +692,7 @@ def main(argv=None) -> int:
             img, stats = eng.frame(W, H)
             frame_ms.append((time.perf_counter() - t1) * 1e3)
         loop_s = time.perf_counter() - t0
-        launches["streamed_pooled"] = raster_tiles.tile_resolve.launches
+        launches["streamed_pooled"] = splat.launches
         peak = torch.cuda.max_memory_allocated()
         rep = eng.report()
         frames = len(frame_ms)
@@ -558,7 +715,7 @@ def main(argv=None) -> int:
             f"max {max(frame_ms):.2f}; pool rebuilds {pool['count']} taking "
             f"{pool['count'] * pool['avg_ms'] / 1e3:.3f} s; host syncs "
             f"{rep['host_syncs']} = {rep['host_syncs'] / frames:.1f}/frame; "
-            f"tile kernel launches {launches['streamed_pooled']}; peak device "
+            f"splat kernel launches {launches['streamed_pooled']}; peak device "
             f"memory {peak / 2**30:.2f} GiB; last frame truncated "
             f"{stats.render_truncated}, {cover:.1%} of pixels drawn; tree "
             f"{tree} equals the bulk load's; card: {card}")
@@ -574,20 +731,21 @@ def main(argv=None) -> int:
             for budget in (1.0, 0.0):
                 eng.settings.point_budget = budget
                 key = "post_load_pooled" if budget else "post_load_exact"
-                raster_tiles.tile_resolve.launches = 0
+                splat.launches = 0
                 eng.render(W, H)     # builds the pool / sizes the windows
                 ms = []
                 for _ in range(5):
                     t1 = time.perf_counter()
                     img, stats = eng.render(W, H)
                     ms.append((time.perf_counter() - t1) * 1e3)
-                launches[key] += raster_tiles.tile_resolve.launches
-                check(raster_tiles.tile_resolve.launches >= 6,
-                      f"{key}: not through the tile kernel")
+                launches[key] += splat.launches
+                check(splat.launches >= 6, f"{key}: not through the splat kernel")
                 check(coverage(img, C) > 0.05, f"{key}: too few pixels drawn")
                 post[budget] = (float(np.median(ms)), stats.render_truncated,
                                 stats.num_visible_points,
                                 stats.num_visible_voxels)
+                route_ms[f"{key[10:]} {view}"] = route_pair(
+                    eng, img, key, tile_launches, card)
             say(f"post-load 1920x1080, {view} view: pooled (point_budget 1.0) "
                 f"median {post[1.0][0]:.2f} ms, truncated {post[1.0][1]}, "
                 f"windows {eng.last_pooled_windows[:4]}; exact median "
@@ -608,6 +766,8 @@ def main(argv=None) -> int:
             rows[("pooled", hqs)] = kernel_vs_plain(
                 raster_tiles.pack_samples(eng.cfg, u, W, H, sets),
                 f"pooled frame, hqs={hqs}", card)
+            srows[("pooled", hqs)] = splat_vs_plain(
+                eng.cfg, u, sets, f"pooled frame, hqs={hqs}", card)
         eng.stream.stop()
         del eng
         gc.collect()
@@ -619,7 +779,7 @@ def main(argv=None) -> int:
         # --- phase 10: LAS bulk path ---
         dirs, tile_sizes = write_tiles(tmp, xyz, rgba)
         del xyz, rgba
-        raster_tiles.tile_resolve.launches = 0
+        splat.launches = 0
         eng10 = Engine(cfg=None, settings=Settings(), device=dev)
         eng10.open([dirs["las"]])
         t0 = time.perf_counter()
@@ -629,7 +789,7 @@ def main(argv=None) -> int:
         load_syncs = eng10.host_syncs
         rep = eng10.report()
         las_ms, (img, stats) = median_ms(lambda: eng10.render(W, H))
-        launches["las_bulk"] = raster_tiles.tile_resolve.launches
+        launches["las_bulk"] = splat.launches
         las_tree = {k: rep[k] for k in TREE}
         cover = coverage(img, C)
         check(rep["num_points"] + rep["num_points_dropped"] == n,
@@ -637,24 +797,33 @@ def main(argv=None) -> int:
               f"{rep['num_points_dropped']} != {n}")
         check(not rep["mem_capacity_reached"], "LAS: mem_capacity_reached")
         check(cover > 0.05, f"LAS: only {cover:.3%} of pixels drawn")
-        check(launches["las_bulk"] > 0, "LAS frames not through the tile kernel")
+        check(launches["las_bulk"] > 0, "LAS frames not through the splat kernel")
+        route_ms["LAS exact"] = route_pair(eng10, img, "las_bulk",
+                                           tile_launches, card)
         say(f"LAS bulk load of {len(tile_sizes)} tiles: {load_s:.2f} s = "
             f"{n / load_s / 1e6:.2f} MP/s; stream t_decode "
             f"{rep['stream']['t_decode']} s (summed over loader threads); host "
             f"syncs {load_syncs}; tree {las_tree}; 1920x1080 exact frame median "
             f"{las_ms:.2f} ms, truncated {stats.render_truncated}, {cover:.1%} "
-            f"of pixels drawn; tile kernel launches {launches['las_bulk']}; "
+            f"of pixels drawn; splat kernel launches {launches['las_bulk']}; "
             f"card: {card}")
-        u = eng10.uniforms(W, H)
-        _, sets, _ = frame_samples(eng10.cfg, eng10.state, u, *eng10.last_windows)
-        rows[("las", True)] = kernel_vs_plain(
-            raster_tiles.pack_samples(eng10.cfg, u, W, H, sets),
-            "LAS exact frame, hqs=True", card)
+        for hqs in (True, False):
+            eng10.settings.use_high_quality_shading = hqs
+            u = eng10.uniforms(W, H)
+            _, sets, _ = frame_samples(eng10.cfg, eng10.state, u,
+                                       *eng10.last_windows)
+            if hqs:
+                rows[("las", True)] = kernel_vs_plain(
+                    raster_tiles.pack_samples(eng10.cfg, u, W, H, sets),
+                    "LAS exact frame, hqs=True", card)
+            srows[("las", hqs)] = splat_vs_plain(
+                eng10.cfg, u, sets, f"LAS exact frame, hqs={hqs}", card)
+        eng10.settings.use_high_quality_shading = True
 
         # --- phase 11: LAZ streamed path (simultaneous loop, pooled) ---
         from simlod_tpu_torch.formats import laz
         decodes, decode_s = laz.decode_count, laz.decode_seconds
-        raster_tiles.tile_resolve.launches = 0
+        splat.launches = 0
         eng = Engine(cfg=None, settings=Settings(point_budget=1.0,
                                                  frame_budget_ms=50.0),
                      device=dev)
@@ -668,7 +837,7 @@ def main(argv=None) -> int:
             img, stats = eng.frame(W, H)
             frame_ms.append((time.perf_counter() - t1) * 1e3)
         loop_s = time.perf_counter() - t0
-        launches["laz_streamed"] = raster_tiles.tile_resolve.launches
+        launches["laz_streamed"] = splat.launches
         rep = eng.report()
         tree = {k: rep[k] for k in TREE}
         n_dec = laz.decode_count - decodes
@@ -686,7 +855,7 @@ def main(argv=None) -> int:
             f"{float(np.median(frame_ms)):.2f}, max {max(frame_ms):.2f}; "
             f"{n_dec} whole-file LAZ decodes (one per file) taking "
             f"{laz.decode_seconds - decode_s:.2f} s on the host CPU; host syncs "
-            f"{rep['host_syncs']}; tile kernel launches "
+            f"{rep['host_syncs']}; splat kernel launches "
             f"{launches['laz_streamed']}; tree {tree} equals the LAS bulk "
             f"load's; card: {card}")
         u = eng.uniforms(W, H)
@@ -722,12 +891,14 @@ def main(argv=None) -> int:
             eng10.settings.point_budget = budget
             for boxes in (False, True):
                 eng10.settings.show_bounding_box = boxes
-                raster_tiles.tile_resolve.launches = 0
+                splat.launches = 0
                 ms, (img, stats) = median_ms(lambda: eng10.render(W, H))
                 if boxes:
-                    launches["overlay"] += raster_tiles.tile_resolve.launches
-                    check(raster_tiles.tile_resolve.launches >= 6,
-                          "overlay frames not through the tile kernel")
+                    launches["overlay"] += splat.launches
+                    check(splat.launches >= 6,
+                          "overlay frames not through the splat kernel")
+                    route_ms[f"overlay {'pooled' if budget else 'exact'}"] = \
+                        route_pair(eng10, img, "overlay", tile_launches, card)
                 overlay[(budget, boxes)] = (ms, img)
             drawn = int((overlay[(budget, True)][1]
                          != overlay[(budget, False)][1]).sum())
@@ -746,9 +917,8 @@ def main(argv=None) -> int:
         # --- phase 13: out-of-core on the 4 LAS tiles ---
         from simlod_tpu_torch.config import EngineConfig
         from simlod_tpu_torch.outofcore import OutOfCoreEngine
-        from simlod_tpu_torch.render import raster
         from simlod_tpu_torch.render.render import composite_frames
-        raster_tiles.tile_resolve.launches = 0
+        splat.launches = 0
         ooc = OutOfCoreEngine(EngineConfig.auto(total_points=max(tile_sizes),
                                                 device=dev),
                               Settings(), device=dev)
@@ -773,13 +943,15 @@ def main(argv=None) -> int:
             img, st = ooc.render(W, H)
             torch.cuda.synchronize()
             return img, st
-        raster_tiles.tile_resolve.launches = 0
+        splat.launches = 0
         ooc_ms, (img, _) = median_ms(ooc_frame)
         visible = len(ooc.last_drawn_bricks)
-        frame_launches = raster_tiles.tile_resolve.launches
+        frame_launches = splat.launches
         check(frame_launches >= 6 * visible > 0,
               f"{frame_launches} kernel launches for {visible} visible bricks "
               "over 6 frames")
+        route_ms["out-of-core composite"] = route_pair(
+            ooc, img, "ooc_composite", tile_launches, card, ooc_frame)
         planes, u = ooc.render_planes(W, H)
         comp, depth = composite_frames(torch.stack([p[1] for p in planes]),
                                        torch.stack([p[2] for p in planes]),
@@ -805,44 +977,68 @@ def main(argv=None) -> int:
         ooc.orbit.radius = 0.3 * float(np.linalg.norm(b.box_max - b.box_min))
         ooc.camera.world = ooc.orbit.world()
         # the check's render_planes above is not part of the path's count
-        raster_tiles.tile_resolve.launches = 0
+        splat.launches = 0
         paged = ooc.auto_page(W, H)
         check(paged is not None, "closeup: no brick paged in")
         t1 = time.perf_counter()
         img, close_stats = ooc_frame()
         close_ms = (time.perf_counter() - t1) * 1e3
-        launches["ooc_bricks"] = (frame_launches
-                                  + raster_tiles.tile_resolve.launches)
+        launches["ooc_bricks"] = frame_launches + splat.launches
         check(coverage(img, C) > 0.05, "closeup: too few pixels drawn")
+        close_med, (img, _) = median_ms(ooc_frame)
+        route_ms["out-of-core closeup"] = route_pair(
+            ooc, img, "ooc_closeup", tile_launches, card, ooc_frame)
         close_trunc = {i: bool(fs.truncated) for i, fs in close_stats.items()}
         say(f"out-of-core 1920x1080 composite of {visible} visible bricks: "
             f"median {ooc_ms:.2f} ms, {ooc_cover:.1%} of pixels drawn, equal to "
             f"the host depth-min composite of the brick planes; closeup paged in brick {paged} "
-            f"({ooc.bricks[paged].pool_used} point rows), frame "
-            f"{close_ms:.2f} ms, truncated by brick {close_trunc}; tile kernel "
+            f"({ooc.bricks[paged].pool_used} point rows), first frame "
+            f"{close_ms:.2f} ms, then median {close_med:.2f} ms, truncated by "
+            f"brick {close_trunc}; splat kernel "
             f"launches {launches['ooc_bricks']}; card: {card}")
         st = ooc.resident_state(paged)
         rcfg = ooc._render_cfg()
         u = ooc.uniforms(W, H)
-        _, sets, _ = frame_samples(rcfg, st, u, rcfg.max_render_points,
-                                   rcfg.max_render_voxels)
-        rows[("ooc", True)] = kernel_vs_plain(
-            raster_tiles.pack_samples(rcfg, u, W, H, sets),
-            "out-of-core paged brick frame, hqs=True", card)
+        for hqs in (True, False):
+            ooc.settings.use_high_quality_shading = hqs
+            u = ooc.uniforms(W, H)
+            _, sets, _ = frame_samples(rcfg, st, u, rcfg.max_render_points,
+                                       rcfg.max_render_voxels)
+            if hqs:
+                rows[("ooc", True)] = kernel_vs_plain(
+                    raster_tiles.pack_samples(rcfg, u, W, H, sets),
+                    "out-of-core paged brick frame, hqs=True", card)
+            srows[("ooc", hqs)] = splat_vs_plain(
+                rcfg, u, sets, f"out-of-core paged brick frame, hqs={hqs}",
+                card)
         del ooc
 
-    err = max(r[0] for r in rows.values())
+    say("frame median ms, splat route vs tile route, interleaved: " + json.dumps(
+        {k: [round(v[0], 2), round(v[1], 2)] for k, v in route_ms.items()}))
+    ex, sx = rows[("exact", True)], srows[("exact", True)]
+    by_stream = lambda rs: {f"{k[0]} {'hqs' if k[1] else 'plain'}":
+                            [round(v, 4) for v in r[1:4]]
+                            for k, r in rs.items()}
     say(json.dumps({"kernels": [{
+        "name": "splat_resolve", "route": "cuda",
+        "source": "simlod_tpu_torch/csrc/raster_splat.cu",
+        "replaces": "simlod_tpu/render/raster_tiles.py:237",
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": max(r[0] for r in srows.values()),
+        "ms": sx[1], "plain_ms": sx[2], "bound_ms": sx[3], "bound_by": "bytes",
+        "library_ms": None, "stage_ms": sx[4],
+        "ms_plain_ms_bound_ms_by_stream": by_stream(srows),
+    }, {
         "name": "tile_resolve", "route": "cuda",
         "source": "simlod_tpu_torch/csrc/raster_tiles.cu",
         "replaces": "simlod_tpu/render/raster_tiles.py:237",
-        "launches": sum(launches.values()), "launches_by_path": launches,
-        "max_abs_err": err,
-        "ms": rows[("exact", True)][1], "plain_ms": rows[("exact", True)][2],
-        "pooled_ms": rows[("pooled", True)][1],
-        "pooled_plain_ms": rows[("pooled", True)][2],
-        "ms_by_stream": {k[0]: [round(r[1], 4), round(r[2], 4)]
-                         for k, r in rows.items() if k[1]}}]}))
+        "launches": sum(tile_launches.values()),
+        "launches_by_path": tile_launches,
+        "max_abs_err": max(r[0] for r in rows.values()),
+        "ms": ex[1], "plain_ms": ex[2], "bound_ms": ex[3], "bound_by": "bytes",
+        "library_ms": None, "stage_ms": sx[5],
+        "ms_plain_ms_bound_ms_by_stream": by_stream(rows),
+    }]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

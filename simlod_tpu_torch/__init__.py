@@ -10,11 +10,14 @@ tiebreak, high-quality shading, eye-dome lighting, box overlays), with a
 colour filter for inner voxels and an out-of-core brick engine for datasets
 larger than the device point pool.
 
-Every function takes or derives an explicit `torch.device`. The package never
-imports jax; the JAX package stays the reference that the tests hold it against.
-The one TPU kernel of the reference (the Pallas tile rasterizer) is a CUDA kernel
-here (csrc/raster_tiles.cu, bound by render/raster_tiles.py); everything else is
-plain torch ops.
+Every function takes or derives an explicit `torch.device`; `Engine` and
+`OutOfCoreEngine` run on the card unless the caller asks for the CPU. The
+package never imports jax; the JAX package stays the reference that the tests
+hold it against. Frames are drawn by the u64 atomicMin splat kernel
+(csrc/raster_splat.cu, bound by render/raster.py). The one TPU kernel of the
+reference (the Pallas tile rasterizer) is a CUDA kernel here too
+(csrc/raster_tiles.cu, bound by render/raster_tiles.py), taken with
+`EngineConfig(use_tile_raster=True)`; everything else is plain torch ops.
 """
 
 __version__ = "0.1.0"

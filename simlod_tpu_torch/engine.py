@@ -175,11 +175,12 @@ def directory_window(n: int, cap: int) -> int:
 
 class Engine:
     """Holds device state and drives streaming, construction and rendering on
-    an explicit torch device."""
+    one torch device: the card unless the caller names another (device="cpu"
+    runs the plain PyTorch versions of the kernels)."""
 
     def __init__(self, cfg: EngineConfig | None = None,
                  settings: Settings | None = None, device=None):
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device if device is not None else "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Engine(device={self.device}): no CUDA device "
                                "is available")

@@ -3,8 +3,9 @@
 The sources are compiled with nvcc for Hopper (sm_90a) into one shared library
 with a plain C interface, loaded with ctypes. The build happens at first use, never
 at import, into simlod_tpu_torch/_build/, keyed by a hash of the sources and
-flags; a later process with the same sources reuses the library. There is no
-fallback: a missing nvcc or a failed build raises.
+flags; a later process with the same sources reuses the library. Each source is
+compiled by its own nvcc, all started together, and the objects are linked
+once. There is no fallback: a missing nvcc or a failed build raises.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # no --use_fast_math: the HQS average must be an IEEE-rounded f32 division
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -66,15 +67,36 @@ def compile_to(out: Path, cmd: list[str]) -> None:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the library (if not built yet); returns its path."""
+    """Compile csrc/*.cu into the library (if not built yet): one nvcc per
+    source, all started together, then one link; returns its path."""
     global build_seconds
     out = library_path()
     if out.exists():
         build_seconds = 0.0
         return out
     t0 = time.perf_counter()
-    compile_to(out, [_nvcc(), *NVCC_FLAGS,
-                     *map(str, sorted(SRC_DIR.glob("*.cu")))])
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    objs = [out.with_suffix(f".{s.stem}.{os.getpid()}.o") for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for c in cmds]
+    try:
+        for cmd, p in zip(cmds, procs):
+            log = p.communicate()[0]
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        compile_to(out, [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs)])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -89,5 +111,7 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.simlod_tile_resolve.argtypes = [p, p, p, i, p, p, p]
             lib.simlod_tile_resolve.restype = i
+            lib.simlod_splat_resolve.argtypes = [p, p, p, i, p, i, p, p, p, p, p]
+            lib.simlod_splat_resolve.restype = i
             _lib = lib
         return _lib

@@ -71,7 +71,8 @@ def _pow2(n: int) -> int:
 
 class OutOfCoreEngine:
     """Builds bricks one after another through one device engine, keeps their
-    voxel LOD renderable, and composites frames across bricks."""
+    voxel LOD renderable, and composites frames across bricks. Runs on the
+    card unless `device` names another (the default of Engine)."""
 
     def __init__(self, cfg: EngineConfig | None = None,
                  settings: Settings | None = None, device=None):

@@ -1,6 +1,11 @@
 """Tile-binned sort-based rasterizer (port of simlod_tpu/render/raster_tiles.py).
 
-  1. project all samples -> (pixel, depth bits, colour)                   [torch]
+Taken with `EngineConfig(use_tile_raster=True)`; frames go through
+render/raster.py's splat kernel by default, as the JAX package takes its tile
+path only on a TPU (simlod_tpu/render/render.py:89).
+
+  1. project all samples -> (pixel, depth bits, colour)
+     (raster.splat_columns)                                               [torch]
   2. sort by (pixel, depth bits[, colour]): each pixel's samples form one run whose
      first row is the reference's u64 atomicMin winner (min depth, then min
      colour: render.cu:95-99)                                             [torch]
@@ -42,20 +47,8 @@ def pack_samples(cfg: EngineConfig, uniforms: Uniforms, width: int, height: int,
     npad = n_tiles * TILE
     assert npad < (1 << WIN_BIT), (width, height)
     dev = sample_sets[0].x.device
-
-    pixs, dbits, colors = [], [], []
-    for s in sample_sets:
-        x, y, d, ok = raster._project(s, uniforms)
-        db = d.view(torch.int32)
-        col = raster._sample_colors(s, uniforms)
-        for pix, use in raster._splat_pixels(x, y, ok, uniforms, width, height,
-                                             cfg.max_point_size):
-            pixs.append(torch.where(use, pix, npad))
-            dbits.append(torch.where(use, db, C.DEPTH_INF_BITS))
-            colors.append(col)
-    pix = torch.cat(pixs)
-    db = torch.cat(dbits)
-    col = torch.cat(colors)
+    pix, db, col = raster.splat_columns(cfg, uniforms, width, height,
+                                        sample_sets, npad)
 
     # pixel (28 bits) and depth bits (31: positive floats and +inf) pack into one
     # int64 key; the exact tiebreak sorts by colour first (unsigned order = signed
@@ -142,8 +135,9 @@ def tile_resolve(cols: torch.Tensor, offs: torch.Tensor, mode: torch.Tensor,
 
     Replaces the Pallas kernel of simlod_tpu/render/raster_tiles.py
     (`_make_kernel._kernel`, launched through the pallas_call at line 237). It
-    is bound by memory: 16 B read per sample, 8 B written per pixel. The design
-    reads each sample once with one 16-byte load, keeps every per-pixel sum in
+    is bound by memory: 12 B of each sample read (flags|pixel, depth bits,
+    colour), 8 B written per pixel. The design reads each sample once with one
+    16-byte load (the fourth word is padding), keeps every per-pixel sum in
     shared memory (one block per 512-pixel tile) and writes each pixel once.
     Each launch adds one to `tile_resolve.launches`."""
     for name, t in (("cols", cols), ("offs", offs), ("mode", mode)):

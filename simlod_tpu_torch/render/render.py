@@ -71,9 +71,11 @@ def frame_samples(cfg: EngineConfig, state: OctreeState, uniforms: Uniforms,
 def _rasterize(cfg: EngineConfig, uniforms: Uniforms, width: int, height: int,
                sets, state: OctreeState, emitted: torch.Tensor):
     """Draw the sample sets, then (with show_bounding_box) the emitted nodes'
-    boxes and the frozen-camera frustum over them. With cfg.use_tile_raster
-    (the default) the samples go through raster_tiles on every device; on the
-    card that is the CUDA tile kernel."""
+    boxes and the frozen-camera frustum over them. cfg.use_tile_raster is the
+    only switch: by default the samples go through raster.rasterize (on the
+    card the CUDA splat kernel), with it through raster_tiles (the sort and
+    the CUDA tile kernel). On CPU tensors each uses its kernel's plain
+    version."""
     if cfg.use_tile_raster:
         color, depth = raster_tiles.rasterize_tiles(cfg, uniforms, width,
                                                     height, sets)

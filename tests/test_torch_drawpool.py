@@ -273,7 +273,7 @@ def test_render_frames_pooled_equals_single_frames(scene):
 def _loaded_engine(xyz, rgba):
     cfg = dataclasses.replace(TCFG, max_render_points=1 << 18,
                               max_render_voxels=1 << 18)
-    eng = TEngine(cfg, TSet(enable_edl=False, min_node_size=8.0))
+    eng = TEngine(cfg, TSet(enable_edl=False, min_node_size=8.0), device="cpu")
     eng.reset([0, 0, 0], [1, 1, 1])
     B = cfg.step_points
     for s0 in range(0, len(xyz), B):

@@ -113,7 +113,8 @@ def test_jax_state_renders_the_same_in_both(slices, hqs):
     jeng.settings.use_high_quality_shading = hqs
     ju = jeng.uniforms(W, H)
     tu = TEngine(TCfg(**KW), TSet(min_node_size=8.0,
-                                  use_high_quality_shading=hqs)).uniforms(W, H)
+                                  use_high_quality_shading=hqs),
+                 device="cpu").uniforms(W, H)
     tu.transform = torch.from_numpy(np.array(ju.transform))
     tu.transform_update_bound = tu.transform
     jimg, jst = j_render_frame(JCfg(**KW), jstate, W, H, ju)

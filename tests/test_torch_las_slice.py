@@ -12,10 +12,13 @@ lie on the frame's edges, and whether an edge pixel lands inside depends on
 the last float32 ulp of the inverse transform, which jnp.linalg.inv and
 torch.linalg.inv round differently (test_torch_lines.py).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from simlod_tpu import engine as jengine
 from simlod_tpu.config import EngineConfig as JCfg, Settings as JSet
 from simlod_tpu.engine import Engine as JEngine
 from simlod_tpu.octree import inspect as jin
@@ -73,8 +76,14 @@ def slices(tmp_path_factory):
     for i, sel in enumerate((half, ~half)):
         las.write(str(d / f"tile_{i}.las"), xyz[sel], rgba[sel])
     kw = dict(min_node_size=8.0, show_bounding_box=True, enable_edl=False)
-    return (_drive(JEngine(JCfg(**KW), JSet(**kw)), str(d)),
-            _drive(TEngine(TCfg(**KW), TSet(**kw), device="cpu"), str(d)))
+    # the JAX stream packs batches in the order its loader threads finish them,
+    # so on a busy machine tile 1 can come first and build another tree; the
+    # port packs in file order. One loader makes the JAX order the file order.
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jengine, "PointStream",
+                   functools.partial(jengine.PointStream, num_loaders=1))
+        jres = _drive(JEngine(JCfg(**KW), JSet(**kw)), str(d))
+    return jres, _drive(TEngine(TCfg(**KW), TSet(**kw), device="cpu"), str(d))
 
 
 def test_las_slice_counters_match_jax(slices):

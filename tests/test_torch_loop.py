@@ -100,7 +100,7 @@ def test_frame_sequence_matches_jax(golden_file, chunk_steps, hqs):
               use_high_quality_shading=hqs, enable_edl=hqs)
     jf = _frame_loop(JEngine(JCfg(**KW), JSet(**kw)), golden_file,
                      chunk_steps, 0.05)
-    tf = _frame_loop(TEngine(TCfg(**KW), TSet(**kw)), golden_file,
+    tf = _frame_loop(TEngine(TCfg(**KW), TSet(**kw), device="cpu"), golden_file,
                      chunk_steps, 0.05)
     steps = -(-60_000 // KW["step_points"])
     assert len(tf) == len(jf) == -(-steps // chunk_steps) + 1
@@ -124,14 +124,14 @@ TREE = ("num_nodes", "num_points", "num_points_processed")
 
 
 def _load_all_tree(path, **settings):
-    eng = TEngine(TCfg(**ENGINE_KW), TSet(**settings))
+    eng = TEngine(TCfg(**ENGINE_KW), TSet(**settings), device="cpu")
     eng.open([path])
     eng.load_all()
     return {k: eng.report()[k] for k in TREE}
 
 
 def test_ingest_next_drains_and_converges_splits(engine_file):
-    eng = TEngine(TCfg(**ENGINE_KW), TSet())
+    eng = TEngine(TCfg(**ENGINE_KW), TSet(), device="cpu")
     eng.open([engine_file])
     while eng.ingest_next():
         pass
@@ -152,7 +152,7 @@ def test_capacity_watermark_ends_the_stream(tmp_path, consume):
     xyz, rgba = synthetic.terrain(30_000, seed=2, extent=50.0)
     p = str(tmp_path / "small.simlod")
     simlod.write(p, xyz, rgba)
-    eng = TEngine(cfg, TSet(min_node_size=8.0))
+    eng = TEngine(cfg, TSet(min_node_size=8.0), device="cpu")
     eng.open([p])
     if consume == "ingest_next":
         while eng.ingest_next():
@@ -171,7 +171,7 @@ def test_pooled_stream_ends_with_the_load_all_tree(engine_file):
     """The simultaneous loop drawing through the draw pool, with the
     wall-clock budget on (several items per frame once frames are fast)."""
     settings = dict(min_node_size=8.0, point_budget=1.0, frame_budget_ms=50.0)
-    eng = TEngine(TCfg(**ENGINE_KW), TSet(**settings))
+    eng = TEngine(TCfg(**ENGINE_KW), TSet(**settings), device="cpu")
     frames = _frame_loop(eng, engine_file, 1, 0.03)
     rep = eng.report()
     assert {k: rep[k] for k in TREE} == _load_all_tree(engine_file, **settings)
@@ -189,7 +189,8 @@ def test_adapt_budget_steps_like_jax():
         + [(0.5, 1)] * 25
     for budget in (50.0, 0.0):
         jeng = JEngine(JCfg(**KW), JSet(frame_budget_ms=budget))
-        teng = TEngine(TCfg(**KW), TSet(frame_budget_ms=budget))
+        teng = TEngine(TCfg(**KW), TSet(frame_budget_ms=budget),
+                       device="cpu")
         got = []
         for ms, consumed in seq:
             jeng._adapt_budget(ms, consumed)
@@ -213,7 +214,7 @@ def test_stopped_stream_ends_its_iteration(golden_file):
 
 
 def test_reset_engine_does_not_hang(golden_file):
-    eng = TEngine(TCfg(**KW), TSet(min_node_size=8.0))
+    eng = TEngine(TCfg(**KW), TSet(min_node_size=8.0), device="cpu")
     eng.open([golden_file], chunk_steps=1)
     assert eng.ingest_next()
     eng.reset(np.zeros(3, np.float32), np.ones(3, np.float32))

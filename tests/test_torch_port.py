@@ -1,6 +1,6 @@
 """Properties of the port itself: it never imports jax, its kernel wrappers have
-no CPU fallback, and (on a card, marker `cuda`) the CUDA tile kernel is
-bit-equal to its plain PyTorch version. On a machine with a card, run the card
+no CPU fallback, and (on a card, marker `cuda`) the CUDA tile and splat kernels
+are bit-equal to their plain PyTorch versions. On a machine with a card, run the card
 tests with `python -m pytest tests/test_torch_port.py -m cuda`;
 chip_smoke.py runs the same comparison at the main path's shapes."""
 import os
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import simlod_tpu_torch
+from simlod_tpu_torch import constants as C
 from simlod_tpu_torch import kernels
 from simlod_tpu_torch.config import EngineConfig, Settings, Uniforms
 from simlod_tpu_torch.engine import Engine
@@ -132,6 +133,59 @@ def test_kernel_build_has_no_fallback(monkeypatch, tmp_path):
         kernels.build()
 
 
+# a stand-in for nvcc: logs its call, fails on a source named bad.cu, else
+# writes its -o file
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "${0%/*}/calls.log"
+out=""; src=""
+while [ $# -gt 0 ]; do
+  case "$1" in -o) out="$2"; shift;; -c) src="$2"; shift;; esac
+  shift
+done
+case "$src" in *bad.cu) echo "bad.cu: error"; exit 2;; esac
+echo built > "$out"
+"""
+
+
+def _fake_toolchain(monkeypatch, tmp_path, sources):
+    src, bin_ = tmp_path / "csrc", tmp_path / "bin"
+    src.mkdir()
+    bin_.mkdir()
+    for name in sources:
+        (src / name).write_text(f"// {name}\n")
+    nvcc = bin_ / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernels, "SRC_DIR", src)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(bin_))
+    return bin_ / "calls.log"
+
+
+def test_kernel_build_compiles_each_source_then_links_once(monkeypatch, tmp_path):
+    """One nvcc -c per source, one link of their objects into the library,
+    which a second build reuses; no object file is left behind."""
+    calls = _fake_toolchain(monkeypatch, tmp_path, ["a.cu", "b.cu"])
+    out = kernels.build()
+    assert out == kernels.library_path() and out.read_text() == "built\n"
+    lines = calls.read_text().splitlines()
+    assert sorted(ln.split(" -c ")[1].split()[0].rsplit("/", 1)[1]
+                  for ln in lines[:2]) == ["a.cu", "b.cu"]
+    assert "-shared" in lines[2].split() and lines[2].count(".o") == 2
+    assert [p.name for p in out.parent.iterdir()] == [out.name]
+    assert kernels.build() == out and kernels.build_seconds == 0.0
+    assert len(calls.read_text().splitlines()) == 3
+
+
+def test_kernel_build_raises_on_a_failed_source(monkeypatch, tmp_path):
+    """A source that does not compile fails the build with nvcc's output; no
+    library or object file is left behind."""
+    _fake_toolchain(monkeypatch, tmp_path, ["a.cu", "bad.cu"])
+    with pytest.raises(RuntimeError, match="bad.cu: error"):
+        kernels.build()
+    assert list((tmp_path / "build").iterdir()) == []
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hqs", [True, False])
 def test_tile_kernel_matches_plain_version(hqs):
@@ -158,3 +212,40 @@ def test_tile_kernel_matches_plain_version(hqs):
     rc, rd = raster_tiles.tile_resolve_reference(*packed)
     torch.cuda.synchronize()
     assert torch.equal(kc, rc) and torch.equal(kd, rd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hqs", [True, False])
+def test_splat_kernel_matches_plain_version(hqs):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    n = 200_000
+    f = lambda a: torch.from_numpy(a).to(dev)
+    x = rng.uniform(-.8, .8, n).astype(np.float32)
+    y = rng.uniform(-.8, .8, n).astype(np.float32)
+    z = rng.uniform(1, 5, n).astype(np.float32)
+    # exact (pixel, depth) ties with other colours, and a crowded pixel
+    x[1000:2000], y[1000:2000], z[1000:2000] = x[:1000], y[:1000], z[:1000]
+    x[5000:6000], y[5000:6000] = 0.1, 0.1
+    s = raster.Samples(
+        x=f(x), y=f(y), z=f(z),
+        rgba=f(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)),
+        node_fn=None, level_fn=None,
+        valid=torch.ones(n, dtype=torch.bool, device=dev),
+        count=torch.tensor(n, device=dev))
+    m = np.zeros((4, 4), np.float32)
+    m[0, 0] = m[1, 1] = m[3, 2] = 1.0
+    u = Uniforms.make(640, 480, m, settings=Settings(use_high_quality_shading=hqs),
+                      device=dev)
+    npx = 640 * 480
+    cols = raster.splat_columns(EngineConfig(), u, 640, 480, [s], npx)
+    mode = torch.tensor([int(hqs)], dtype=torch.int32, device=dev)
+    before = raster.splat_resolve.launches
+    kc, kd = raster.splat_resolve(*cols, mode, npx)
+    rc, rd = raster.splat_resolve_reference(*cols, mode, npx)
+    torch.cuda.synchronize()
+    assert raster.splat_resolve.launches == before + 1
+    assert torch.equal(kc, rc) and torch.equal(kd, rd)
+    assert (kc != C.BACKGROUND_COLOR).float().mean() > 0.05
