@@ -57,11 +57,31 @@ Phases (every one must pass; a failure raises and exits non-zero):
      tile: build_all, the composited 1080p frame held against a depth-min
      composite of the per-brick planes computed on the host, a closeup
      auto_page and one frame, each frame also through both routes in turn;
-     kernels against plain versions on the paged brick's sample sets.
+     kernels against plain versions on the paged brick's sample sets;
+ 14. small sharded references, GPU against CPU, on a mesh of 4 shards
+     (make_mesh([cuda] * 4) against make_mesh(["cpu"] * 4)): the 30k terrain
+     of tests/test_sharded_engine.py through ShardedEngine (equal report(),
+     per-shard trees equal by node identity, point multisets and voxel sets,
+     images bit-equal with EDL off and within 1 per channel with EDL on) and
+     the two slabs of tests/test_sharded_outofcore.py through
+     ShardedOutOfCoreEngine (16,384-point pools per shard, which together do
+     not hold the 80k points: equal report(), bit-equal composite);
+ 15. sharded bulk path: phase 3's file through ShardedEngine on 4 shards of
+     the card at 1920x1080 (slot_factor 4, default Settings, per-shard
+     EngineConfig.auto sized for the largest shard's share): load_all, then
+     composited frames; the composite equal to a host depth-min of the four
+     shard planes, its silhouette within IoU 0.8 of phase 3's frame; kernel
+     against plain version on shard 0's stream;
+ 16. sharded out-of-core: phase 10's 4 LAS tiles as bricks through
+     ShardedOutOfCoreEngine on the same mesh, with per-shard pools too small
+     for the dataset (4 x point_capacity < N) but large enough for every
+     shard's share of a tile: build, composited frames, the composite equal
+     to a host depth-min of the brick planes.
 Every kernel launch counter is zeroed just before each main path (phases 3, 6,
-7, 10, 11, 12 and 13) and read just after: the splat kernel must have run on
-every one, the tile kernel on the tile-route frames of phases 3, 7, 10, 12
-and 13.
+7, 10, 11, 12, 13, 15 and 16) and read just after: the splat kernel must have
+run on every one, the tile kernel on the tile-route frames of phases 3, 7,
+10, 12 and 13. Phases 15-16 run 4 shards on one card: they show the sharded
+path works there, not how it scales over cards.
 
 It prints a JSON line with the kernels' launches, errors, times and bounds,
 the card line, and as its last line {"ok": true, "device": {...}}. Without a
@@ -399,10 +419,32 @@ def time_ms(fn, reps: int = 20) -> float:
 TREE = ("num_nodes", "num_points", "num_points_processed")
 
 
+def drawn_mask(img, C):
+    """Pixels that are not background."""
+    rgb = img.cpu().numpy().view("uint32") & 0xFFFFFF
+    return rgb != (C.BACKGROUND_COLOR & 0xFFFFFF)
+
+
 def coverage(img, C) -> float:
     """Share of pixels that are not background."""
-    rgb = img.cpu().numpy().view("uint32") & 0xFFFFFF
-    return float((rgb != (C.BACKGROUND_COLOR & 0xFFFFFF)).mean())
+    return float(drawn_mask(img, C).mean())
+
+
+def host_depth_min(planes, u, dev):
+    """The depth-min composite of (colour, depth) planes ([H*W] each) computed
+    on the host (ties to the lower plane), then one EDL pass on the card ->
+    (image i32 [H*W] on the card, depth i32 [H*W] numpy)."""
+    import numpy as np
+    import torch
+    from simlod_tpu_torch.render import raster
+    hc = np.stack([c.cpu().numpy() for c, _ in planes])
+    hd = np.stack([d.cpu().numpy() for _, d in planes])
+    k = np.argmin(hd, axis=0)
+    cols = np.arange(hd.shape[1])
+    host_c, host_d = hc[k, cols], hd[k, cols]
+    img = raster.edl(torch.from_numpy(host_c).to(dev),
+                     torch.from_numpy(host_d).to(dev), u, W, H)
+    return img, host_d
 
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA's data sheet)
@@ -556,6 +598,268 @@ def splat_vs_plain(cfg, u, sets, what: str, card: str):
     return err, ms, plain_ms, bound, stage, tile_stage
 
 
+N_SHARDS = 4
+# the fixtures of tests/test_sharded_engine.py and test_sharded_outofcore.py;
+# on 4 shards each slab puts ~10k points on every shard, so the out-of-core
+# pools hold 16,384 points (there 8,192 on 8 shards): still 4 x 16,384 < 80k
+SHARD_CFG = dict(
+    candidate_factor=21, cand_multi_rows=1 << 13,
+    node_capacity=1 << 12, point_capacity=1 << 16, voxel_capacity=1 << 18,
+    segment_capacity=1 << 14, step_points=1 << 13, spill_capacity=1 << 13,
+    max_splits_per_round=64, seg_select_cap=1 << 10, max_points_per_node=128,
+    max_render_points=1 << 16, max_render_voxels=1 << 16)
+SHARD_OOC_CFG = dict(SHARD_CFG, point_capacity=1 << 14,
+                     segment_capacity=1 << 13, step_points=1 << 12,
+                     spill_capacity=1 << 12, max_render_points=1 << 15)
+
+
+def tree_view(state):
+    """A state's tree by node identity (level, nx, ny, nz): leaf flag,
+    counters, its points as a sorted multiset, its voxels by cell."""
+    from simlod_tpu_torch.octree import inspect
+    out = {}
+    for key, v in inspect.node_table(state).items():
+        pts = sorted(zip(*(v["points_xyz"][:, a].tolist() for a in range(3)),
+                         v["points_rgba"].tolist()))
+        out[key] = (v["is_leaf"], v["counter"], v["num_points"],
+                    v["num_voxels"], pts, v["voxels"])
+    return out
+
+
+def phase_small_sharded(tmp, device):
+    """Phase 14 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    from simlod_tpu_torch.config import EngineConfig, Settings
+    from simlod_tpu_torch.formats import simlod, synthetic
+    from simlod_tpu_torch.parallel import shard
+    from simlod_tpu_torch.parallel.engine import ShardedEngine
+    from simlod_tpu_torch.parallel.outofcore import ShardedOutOfCoreEngine
+    from simlod_tpu_torch.render.render import image_to_rgba8
+    xyz, rgba = synthetic.terrain(30_000, seed=9, extent=1.0, z_scale=0.5)
+    path = os.path.join(tmp, "sharded_small.simlod")
+    simlod.write(path, xyz, rgba)
+    rng = np.random.default_rng(21)
+    slabs = []
+    for i, (x0, col) in enumerate(zip((0.0, 4.0), (0xFF0000FF, 0xFF00FF00))):
+        sxyz = rng.random((40_000, 3)).astype(np.float32)
+        sxyz[:, 0] += x0
+        slabs.append(os.path.join(tmp, f"slab_{i}.simlod"))
+        simlod.write(slabs[-1], sxyz, np.full(40_000, col, np.uint32))
+
+    def run(dev):
+        mesh = shard.make_mesh([dev] * N_SHARDS)
+        eng = ShardedEngine(EngineConfig(**SHARD_CFG), mesh=mesh, width=96,
+                            height=64, settings=Settings(min_node_size=8.0,
+                                                         enable_edl=False),
+                            slot_factor=N_SHARDS)
+        eng.open([path])
+        eng.load_all()
+        eng.stream.stop()
+        plain = eng.render().cpu().numpy()
+        eng.settings.enable_edl = True
+        edl = image_to_rgba8(eng.render())[..., :3].astype(int)
+        trees = [tree_view(st) for st in eng.state]
+        ooc = ShardedOutOfCoreEngine(
+            EngineConfig(**SHARD_OOC_CFG), mesh=mesh, width=160, height=64,
+            settings=Settings(min_node_size=8.0, enable_edl=False),
+            slot_factor=N_SHARDS)
+        ooc.open(slabs)
+        ooc.build_all()
+        comp = ooc.render()[0].cpu().numpy()
+        return eng.report(), trees, plain, edl, ooc.report(), comp
+
+    g, c = run(device), run("cpu")
+    check(g[0] == c[0], f"sharded report: GPU {g[0]} != CPU {c[0]}")
+    check(g[0]["num_points"] == 30_000 and g[0]["num_points_dropped"] == 0,
+          f"sharded small: {g[0]}")
+    for s, (gt, ct) in enumerate(zip(g[1], c[1])):
+        check(gt == ct, f"shard {s}: GPU and CPU trees differ")
+    check(np.array_equal(g[2], c[2]), "sharded frame, EDL off: GPU != CPU")
+    d = np.abs(g[3] - c[3]).max()
+    check(d <= 1, f"sharded frame, EDL on: GPU vs CPU max diff {d}")
+    check(g[4] == c[4], f"sharded out-of-core report: GPU {g[4]} != CPU {c[4]}")
+    check(g[4]["total_points"] == 80_000
+          > N_SHARDS * g[4]["per_chip_point_capacity"],
+          f"sharded out-of-core fixture: {g[4]}")
+    check(np.array_equal(g[5], c[5]),
+          "sharded out-of-core composite: GPU != CPU")
+    say(f"small sharded ({N_SHARDS} shards): report equal {g[0]}, trees "
+        f"equal per shard ({[len(t) for t in g[1]]} nodes), frame bit-equal "
+        f"with EDL off, max diff {d} with EDL on; out-of-core slabs: report "
+        f"equal, composite bit-equal; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def shard_shares(xyz, cube: float, n: int) -> list:
+    """Points of xyz (rebased into the octree cube) each of n shards owns:
+    the port's _brick_owner on the host."""
+    import numpy as np
+    import torch
+    from simlod_tpu_torch.ops import morton
+    from simlod_tpu_torch.parallel import shard
+    t = torch.from_numpy(np.ascontiguousarray(xyz))
+    q = morton.quantize_cols(t[:, 0], t[:, 1], t[:, 2], torch.zeros(3),
+                             torch.tensor(float(cube)))
+    own = shard._brick_owner(*q, shard.brick_level_for(n), n)
+    return torch.bincount(own.long(), minlength=n).tolist()
+
+
+def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows):
+    """Phase 15 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from simlod_tpu_torch import constants as C
+    from simlod_tpu_torch.config import EngineConfig, Settings
+    from simlod_tpu_torch.formats import simlod
+    from simlod_tpu_torch.parallel import shard
+    from simlod_tpu_torch.parallel.engine import ShardedEngine
+    from simlod_tpu_torch.render import raster
+    from simlod_tpu_torch.render.render import frame_samples
+    info = simlod.load_info(path)
+    xyz, _ = simlod.read_points(path)
+    shares = shard_shares(xyz, float((info.box_max - info.box_min).max()),
+                          N_SHARDS)
+    del xyz
+    mesh = shard.make_mesh([dev] * N_SHARDS)
+    free = torch.cuda.mem_get_info(dev)[0]
+    cfg = EngineConfig.auto(total_points=max(shares),
+                            memory_bytes=free // N_SHARDS)
+    torch.cuda.reset_peak_memory_stats()
+    raster.splat_resolve.launches = 0
+    eng = ShardedEngine(cfg, mesh=mesh, width=W, height=H,
+                        settings=Settings(), slot_factor=N_SHARDS)
+    eng.open([path])
+    t0 = time.perf_counter()
+    eng.load_all()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_syncs = eng.host_syncs
+    rep = eng.report()
+
+    def frame():
+        img = eng.render()
+        torch.cuda.synchronize()
+        return img
+    t1 = time.perf_counter()
+    frame()
+    first_ms = (time.perf_counter() - t1) * 1e3
+    med_ms, img = median_ms(frame)
+    launches["sharded"] = raster.splat_resolve.launches
+    peak = torch.cuda.max_memory_allocated()
+    per_shard = [[int(v) for v in (
+        torch.where(st.child_base < 0, st.num_points, 0).sum(),
+        st.num_nodes, st.vox_used)] for st in eng.state]
+    check(rep["num_points"] + rep["num_points_dropped"] == n
+          and rep["num_points_dropped"] == 0,
+          f"sharded: points {rep['num_points']} + dropped "
+          f"{rep['num_points_dropped']} != {n} (or some dropped)")
+    check(not rep["mem_capacity_reached"], "sharded: mem_capacity_reached")
+    cover = coverage(img, C)
+    check(cover > 0.05, f"sharded: only {cover:.3%} of pixels drawn")
+    check(launches["sharded"] >= 6 * N_SHARDS,
+          f"sharded: {launches['sharded']} kernel launches for 6 frames of "
+          f"{N_SHARDS} shards")
+    # the check: each shard's plane drawn alone, composited on the host
+    u = eng.uniforms()
+    planes = []
+    for st in eng.state:
+        _, sets, _ = frame_samples(cfg, st, u)
+        planes.append(raster.rasterize(cfg, u, W, H, sets))
+    host_img, host_d = host_depth_min(planes, u, dev)
+    check(np.array_equal(eng.last_depth.cpu().numpy().reshape(-1), host_d)
+          and torch.equal(img.reshape(-1), host_img),
+          "sharded composite != host depth-min composite of the shard planes")
+    cov = drawn_mask(img, C)
+    iou = float((cov & cov3).sum() / max((cov | cov3).sum(), 1))
+    check(iou > 0.8, f"sharded silhouette IoU {iou:.3f} vs phase 3's frame")
+    say(f"sharded bulk ({N_SHARDS} shards on one card, slot_factor "
+        f"{N_SHARDS}, point pool {cfg.point_capacity} per shard for shares "
+        f"{shares}): load_all {load_s:.2f} s = {n / load_s / 1e6:.2f} MP/s; "
+        f"per shard [points, nodes, voxels] {per_shard}; exchange rows "
+        f"dropped {rep['num_points_dropped']}; host syncs {load_syncs}; "
+        f"peak device memory {peak / 2**30:.2f} GiB; composited 1920x1080 "
+        f"frame first {first_ms:.2f} ms, then median {med_ms:.2f} ms; "
+        f"{cover:.1%} of pixels drawn, silhouette IoU {iou:.3f} vs the "
+        f"single engine's frame; composite equals the host depth-min of the "
+        f"shard planes; splat kernel launches {launches['sharded']}; card: "
+        f"{card}")
+    for hqs in (True, False):
+        eng.settings.use_high_quality_shading = hqs
+        u = eng.uniforms()
+        _, sets, _ = frame_samples(cfg, eng.state[0], u)
+        srows[("sharded shard 0", hqs)] = splat_vs_plain(
+            cfg, u, sets, f"sharded shard 0's frame, hqs={hqs}", card)
+    eng.stream.stop()
+    say(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_sharded_ooc(las_dir, n, dev, card, launches):
+    """Phase 16 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from simlod_tpu_torch import constants as C
+    from simlod_tpu_torch.config import EngineConfig, Settings
+    from simlod_tpu_torch.formats import las
+    from simlod_tpu_torch.io.streaming import scan_paths
+    from simlod_tpu_torch.parallel import shard
+    from simlod_tpu_torch.parallel.outofcore import ShardedOutOfCoreEngine
+    from simlod_tpu_torch.render import raster
+    entries = scan_paths([las_dir])
+    gmin = np.min([e.box_min for e in entries], axis=0)
+    cube = float((np.max([e.box_max for e in entries], axis=0) - gmin).max())
+    shares = [shard_shares(las.read_points(e.path, translation=-gmin)[0],
+                           cube, N_SHARDS) for e in entries]
+    mesh = shard.make_mesh([dev] * N_SHARDS)
+    free = torch.cuda.mem_get_info(dev)[0]
+    cfg = EngineConfig.auto(total_points=max(max(s) for s in shares),
+                            memory_bytes=free // N_SHARDS)
+    check(N_SHARDS * cfg.point_capacity < n,
+          f"sharded out-of-core: {N_SHARDS} x {cfg.point_capacity} points "
+          f"hold the whole {n}")
+    raster.splat_resolve.launches = 0
+    ooc = ShardedOutOfCoreEngine(cfg, mesh=mesh, width=W, height=H,
+                                 settings=Settings(), slot_factor=N_SHARDS)
+    ooc.open([las_dir])
+    brick_s = []
+    for p in ooc.brick_paths:
+        t0 = time.perf_counter()
+        ooc.build_brick(p)
+        torch.cuda.synchronize()
+        brick_s.append(time.perf_counter() - t0)
+    rep = ooc.report()
+
+    def frame():
+        out = ooc.render()
+        torch.cuda.synchronize()
+        return out
+    med_ms, (img, depth) = median_ms(frame)
+    launches["sharded_ooc"] = raster.splat_resolve.launches
+    check(rep["total_points"] == n,
+          f"sharded out-of-core: {rep['total_points']} points of {n}")
+    check(launches["sharded_ooc"] >= 6 * len(brick_s) * N_SHARDS,
+          f"sharded out-of-core: {launches['sharded_ooc']} kernel launches")
+    planes, u = ooc.render_planes()
+    host_img, host_d = host_depth_min(planes, u, dev)
+    check(np.array_equal(depth.cpu().numpy().reshape(-1), host_d)
+          and torch.equal(img.reshape(-1), host_img),
+          "sharded out-of-core composite != host depth-min of the brick "
+          "planes")
+    cover = coverage(img, C)
+    check(cover > 0, "sharded out-of-core: nothing drawn")
+    say(f"sharded out-of-core ({N_SHARDS} shards on one card): bricks built "
+        f"in {', '.join(f'{t:.2f}' for t in brick_s)} s; total_points "
+        f"{rep['total_points']} == {n} over pools of {cfg.point_capacity} "
+        f"points per shard (shares per tile {shares}); {rep['total_voxels']} "
+        f"voxels, {rep['total_nodes']} nodes, host bytes {rep['host_bytes']}; "
+        f"composited 1920x1080 frame median {med_ms:.2f} ms, {cover:.1%} of "
+        f"pixels drawn, equal to the host depth-min of the brick planes; "
+        f"splat kernel launches {launches['sharded_ooc']}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; card: {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--points", type=int, default=36_000_000)
@@ -629,6 +933,7 @@ def main(argv=None) -> int:
               "nothing visible")
         check(tuple(img.shape) == (H, W), f"image shape {tuple(img.shape)}")
         cover = coverage(img, C)
+        cov3 = drawn_mask(img, C)     # phase 15's silhouette reference
         check(cover > 0.05, f"only {cover:.3%} of pixels drawn")
         check(launches["bulk_exact"] > 0,
               "the frame did not go through the splat kernel")
@@ -956,15 +1261,9 @@ def main(argv=None) -> int:
         comp, depth = composite_frames(torch.stack([p[1] for p in planes]),
                                        torch.stack([p[2] for p in planes]),
                                        u, W, H)
-        hc = np.stack([p[1].cpu().numpy() for p in planes])
-        hd = np.stack([p[2].cpu().numpy() for p in planes])
-        k = np.argmin(hd, axis=0)
-        cols = np.arange(hd.shape[1])
-        host_c, host_d = hc[k, cols], hd[k, cols]
+        host_img, host_d = host_depth_min([p[1:3] for p in planes], u, dev)
         check(np.array_equal(depth.cpu().numpy(), host_d),
               "composite depth != host depth-min of the brick planes")
-        host_img = raster.edl(torch.from_numpy(host_c).to(dev),
-                              torch.from_numpy(host_d).to(dev), u, W, H)
         check(torch.equal(comp.reshape(-1), host_img)
               and torch.equal(img, comp),
               "composite != host depth-min composite of the brick planes")
@@ -1011,7 +1310,16 @@ def main(argv=None) -> int:
             srows[("ooc", hqs)] = splat_vs_plain(
                 rcfg, u, sets, f"out-of-core paged brick frame, hqs={hqs}",
                 card)
-        del ooc
+        del ooc, st
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- phases 14-16: the sharded engine on 4 shards of the card ---
+        phase_small_sharded(tmp, dev)
+        phase_sharded_bulk(path, n, cov3, dev, card, launches, srows)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_sharded_ooc(dirs["las"], n, dev, card, launches)
 
     say("frame median ms, splat route vs tile route, interleaved: " + json.dumps(
         {k: [round(v[0], 2), round(v[1], 2)] for k, v in route_ms.items()}))

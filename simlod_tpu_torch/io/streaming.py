@@ -17,6 +17,11 @@ copies.
 On a CPU device the planes are plain tensors and nothing is pinned or async.
 All files share one union box (or the `box_override` box: out-of-core bricks
 are rebased into one world box); coordinates are translated by -box_min.
+
+Given a sequence of n devices (the shards of a parallel.shard.Mesh), each
+step's B rows are split into n blocks of B/n and block s goes from the pinned
+planes straight to device s (the JAX package's sharded device_put); the
+yielded planes are then lists of n per-shard [K, B/n] tensors.
 """
 from __future__ import annotations
 
@@ -34,6 +39,18 @@ from .. import native
 from ..formats import las, laz, simlod
 
 BATCH_POINTS = 1_000_000   # loader batch granularity (reference MAX_BATCH_SIZE)
+
+
+def _copy_block(src: torch.Tensor, device) -> torch.Tensor:
+    """Async copy of a [K, w] block of a pinned plane to `device`. A strided
+    block (a column block of K > 1 steps) goes one contiguous row at a time:
+    a strided source would be staged through pageable memory."""
+    if src.is_contiguous():
+        return src.to(device, non_blocking=True)
+    dst = torch.empty(src.shape, dtype=src.dtype, device=device)
+    for k in range(src.shape[0]):
+        dst[k].copy_(src[k], non_blocking=True)
+    return dst
 
 
 @dataclasses.dataclass
@@ -83,7 +100,9 @@ class PointStream:
 
     Iterating yields (x, y, z, rgba, counts): [K, B] tensors on `device` (rgba as
     int32 bit patterns) and a numpy int32 [K] of valid rows per step. The
-    tensors are ready to use on the consumer's current stream."""
+    tensors are ready to use on the consumer's current stream. With a sequence
+    of n devices (all of one type) each plane is a list of n [K, B/n] tensors,
+    block s on device s."""
 
     def __init__(self, paths, step_points: int, device=None,
                  num_loaders: int | None = None, ring_slots: int = 4,
@@ -92,7 +111,20 @@ class PointStream:
         self.entries = scan_paths(paths)
         if not self.entries:
             raise FileNotFoundError(f"no point cloud files under {paths!r}")
-        self.device = torch.device(device if device is not None else "cpu")
+        self.sharded = isinstance(device, (list, tuple))
+        devices = [torch.device(d) for d in device] if self.sharded \
+            else [torch.device(device if device is not None else "cpu")]
+        # an index-less "cuda" names the current card (tensors report cuda:i)
+        devices = [torch.device("cuda", torch.cuda.current_device())
+                   if d.type == "cuda" and d.index is None else d
+                   for d in devices]
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"PointStream: devices {devices} mix types")
+        if step_points % len(devices):
+            raise ValueError(f"PointStream: {step_points} rows per step do "
+                             f"not split over {len(devices)} devices")
+        self.devices = devices
+        self.device = devices[0]
         self.step_points = step_points
         self.chunk_steps = max(1, chunk_steps)
         if box_override is not None:
@@ -119,7 +151,7 @@ class PointStream:
         self._ready: queue.Queue = queue.Queue(maxsize=ring_slots)
         self._cuda = self.device.type == "cuda"
         if self._cuda:
-            self._side = torch.cuda.Stream(self.device)
+            self._sides = {d: torch.cuda.Stream(d) for d in devices}
             # pinned plane sets, recycled once their copy has completed
             self._free: queue.Queue = queue.Queue()
             for _ in range(ring_slots + 1):
@@ -223,16 +255,40 @@ class PointStream:
         return False
 
     # --- uploader thread ---
+    def _place(self, planes):
+        """A filled plane set on its device(s) -> (planes, [(device, event)]).
+        On CUDA the copies are issued on each device's side stream and each
+        device's event marks them done; CPU planes are used in place. In
+        sharded mode each plane becomes its list of per-device blocks."""
+        n = len(self.devices)
+        w = self.step_points // n
+        blocks = [[p[:, s * w:(s + 1) * w] for s in range(n)] if self.sharded
+                  else [p] for p in planes]
+        events = []
+        if self._cuda:
+            for d, side in self._sides.items():
+                with torch.cuda.stream(side):
+                    for bl in blocks:
+                        for s in range(n):
+                            if self.devices[s] == d:
+                                bl[s] = _copy_block(bl[s], d)
+                    ev = torch.cuda.Event()
+                    ev.record(side)
+                events.append((d, ev))
+        out = tuple(bl if self.sharded else bl[0] for bl in blocks)
+        return out, events
+
     def _upload(self):
         K, B = self.chunk_steps, self.step_points
-        inflight = collections.deque()     # (event, pinned planes)
+        inflight = collections.deque()     # ([(device, event)], pinned planes)
         planes = self._free.get() if self._cuda else self._new_planes(False)
         counts = np.zeros(K, np.int32)
         step = fill = 0
 
         def recycle_one():
-            ev, pset = inflight.popleft()
-            ev.synchronize()
+            events, pset = inflight.popleft()
+            for _, ev in events:
+                ev.synchronize()
             self._free.put(pset)
 
         def flush():
@@ -247,16 +303,10 @@ class PointStream:
             for p in planes:
                 p[step:] = 0
             t0 = time.perf_counter()
+            out, events = self._place(planes)
             if self._cuda:
-                with torch.cuda.stream(self._side):
-                    dev = tuple(p.to(self.device, non_blocking=True)
-                                for p in planes)
-                    ev = torch.cuda.Event()
-                    ev.record(self._side)
-                inflight.append((ev, planes))
-                item = (dev, ev, counts.copy())
-            else:
-                item = (planes, None, counts.copy())
+                inflight.append((events, planes))
+            item = (out, events, counts.copy())
             self.t_put += time.perf_counter() - t0
             if not self._put(self._ready, item):
                 return
@@ -332,13 +382,16 @@ class PointStream:
                 if self._error is not None:
                     raise RuntimeError("point stream failed") from self._error
                 return
-            (x, y, z, rgba), ev, counts = item
-            if ev is not None:
-                cur = torch.cuda.current_stream(self.device)
+            planes, events, counts = item
+            tensors = [t for p in planes
+                       for t in (p if self.sharded else [p])]
+            for d, ev in events:
+                cur = torch.cuda.current_stream(d)
                 cur.wait_event(ev)
-                for t in (x, y, z, rgba):
-                    t.record_stream(cur)
-            yield x, y, z, rgba, counts
+                for t in tensors:
+                    if t.device == d:
+                        t.record_stream(cur)
+            yield (*planes, counts)
 
     def stop(self):
         """Stop and join the pipeline threads."""

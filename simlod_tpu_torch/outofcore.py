@@ -69,6 +69,42 @@ def _pow2(n: int) -> int:
     return max(128, 1 << (max(n, 1) - 1).bit_length())
 
 
+def lod_render_state(nodes: dict, voxels: dict, num_nodes: int,
+                     vox_used: int, cube_size, device,
+                     paged: Brick | None = None) -> OctreeState:
+    """An exact-size device OctreeState from host columns: the node directory
+    (`num_nodes` rows) and compacted voxels (`vox_used` rows) of an evicted
+    octree, plus the point pool and segments of `paged` when it is paged back
+    in. Columns a render never reads stay minimal."""
+    nn = num_nodes
+    i32 = lambda n, v=0: np.full(n, v, np.int32)
+    # an empty column keeps one row: gathers clamp their indices into it
+    rows = lambda cols: {c: a if len(a) else np.zeros(1, a.dtype)
+                         for c, a in cols.items()}
+    d = dict(nodes)
+    d.update(node_seg_count=i32(nn), anc=i32(nn * (C.MAX_DEPTH + 1)),
+             num_nodes=np.int32(nn), b_key0=i32(1), b_key1=i32(1),
+             b_pack=i32(1), num_boundaries=np.int32(1),
+             pool_waste=np.int32(0), box_min=np.zeros(3, np.float32),
+             cube_size=np.float32(cube_size),
+             num_points_processed=np.int32(0),
+             num_points_dropped=np.int32(0),
+             num_candidates_dropped=np.int32(0),
+             mem_capacity_reached=np.bool_(False))
+    d.update(rows(voxels))
+    d.update(vox_used=np.int32(vox_used), vox_compacted=np.int32(vox_used))
+    if paged is not None:
+        d.update(rows(paged.points))
+        d.update(rows(paged.segs))
+        d.update(pool_used=np.int32(paged.pool_used),
+                 num_segments=np.int32(paged.num_segments))
+    else:
+        d.update({c: i32(1) for c in _PT_COLS})
+        d.update(seg_node=i32(1, -1), seg_off=i32(1), seg_cnt=i32(1),
+                 pool_used=np.int32(0), num_segments=np.int32(0))
+    return state_from_numpy(d, device)
+
+
 class OutOfCoreEngine:
     """Builds bricks one after another through one device engine, keeps their
     voxel LOD renderable, and composites frames across bricks. Runs on the
@@ -157,37 +193,11 @@ class OutOfCoreEngine:
 
     def _render_state(self, i: int, with_points: bool) -> OctreeState:
         """Materialize brick i as an exact-size device OctreeState: the voxel
-        LOD only, or with its point pool paged back in. Columns a render never
-        reads stay minimal."""
+        LOD only, or with its point pool paged back in."""
         b = self.bricks[i]
-        nn = b.num_nodes
-        i32 = lambda n, v=0: np.full(n, v, np.int32)
-        # an empty column keeps one row: gathers clamp their indices into it
-        rows = lambda cols: {c: a if len(a) else np.zeros(1, a.dtype)
-                             for c, a in cols.items()}
-        d = dict(b.nodes)
-        d.update(node_seg_count=i32(nn), anc=i32(nn * (C.MAX_DEPTH + 1)),
-                 num_nodes=np.int32(nn), b_key0=i32(1), b_key1=i32(1),
-                 b_pack=i32(1), num_boundaries=np.int32(1),
-                 pool_waste=np.int32(0), box_min=np.zeros(3, np.float32),
-                 cube_size=np.float32(self._extent().max()),
-                 num_points_processed=np.int32(0),
-                 num_points_dropped=np.int32(0),
-                 num_candidates_dropped=np.int32(0),
-                 mem_capacity_reached=np.bool_(False))
-        d.update(rows(b.voxels))
-        d.update(vox_used=np.int32(b.vox_used),
-                 vox_compacted=np.int32(b.vox_used))
-        if with_points:
-            d.update(rows(b.points))
-            d.update(rows(b.segs))
-            d.update(pool_used=np.int32(b.pool_used),
-                     num_segments=np.int32(b.num_segments))
-        else:
-            d.update({c: i32(1) for c in _PT_COLS})
-            d.update(seg_node=i32(1, -1), seg_off=i32(1), seg_cnt=i32(1),
-                     pool_used=np.int32(0), num_segments=np.int32(0))
-        return state_from_numpy(d, self.device)
+        return lod_render_state(b.nodes, b.voxels, b.num_nodes, b.vox_used,
+                                self._extent().max(), self.device,
+                                b if with_points else None)
 
     def resident_state(self, i: int) -> OctreeState:
         if i not in self._resident:

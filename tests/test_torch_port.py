@@ -34,7 +34,10 @@ MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.config",
            "simlod_tpu_torch.octree.inspect",
            "simlod_tpu_torch.octree.structures",
            "simlod_tpu_torch.ops.morton", "simlod_tpu_torch.ops.ragged",
-           "simlod_tpu_torch.ops.segments", "simlod_tpu_torch.render.camera",
+           "simlod_tpu_torch.ops.segments",
+           "simlod_tpu_torch.parallel.engine",
+           "simlod_tpu_torch.parallel.outofcore",
+           "simlod_tpu_torch.parallel.shard", "simlod_tpu_torch.render.camera",
            "simlod_tpu_torch.render.drawpool",
            "simlod_tpu_torch.render.frustum", "simlod_tpu_torch.render.lines",
            "simlod_tpu_torch.render.raster",
@@ -68,7 +71,7 @@ def test_every_port_module_is_listed():
                           else mod)
     assert found - {"simlod_tpu_torch.formats", "simlod_tpu_torch.io",
                     "simlod_tpu_torch.octree", "simlod_tpu_torch.ops",
-                    "simlod_tpu_torch.render",
+                    "simlod_tpu_torch.parallel", "simlod_tpu_torch.render",
                     "simlod_tpu_torch.tools"} == set(MODULES)
 
 
