@@ -76,12 +76,24 @@ Phases (every one must pass; a failure raises and exits non-zero):
      ShardedOutOfCoreEngine on the same mesh, with per-shard pools too small
      for the dataset (4 x point_capacity < N) but large enough for every
      shard's share of a tile: build, composited frames, the composite equal
-     to a host depth-min of the brick planes.
+     to a host depth-min of the brick planes;
+ 17. the app and the viewer, as a user starts them: simlod_tpu_torch.app's
+     main in process on phase 3's file (--frames 30 at 1920x1080, PPM frames,
+     --json report) and on phase 10's LAS tiles (--benchmark --filter-colors
+     --show-boxes --png: the timing table, PNGs that decode to 1920x1080);
+     `python -m simlod_tpu_torch.app <file> --json` as a subprocess (no
+     --device: on the card by default); the viewer serving a fresh Engine
+     that streams phase 3's file (/, 20 orbit /frame PNGs, /stats while
+     streaming and after, /bench?frames=20, /bench?frames=5&reset=1, which
+     re-opens the file and times the whole load); then every tensor read of
+     an exact, a pooled and a streamed 1080p frame counted and held equal to
+     the engine's host_syncs.
 Every kernel launch counter is zeroed just before each main path (phases 3, 6,
-7, 10, 11, 12, 13, 15 and 16) and read just after: the splat kernel must have
-run on every one, the tile kernel on the tile-route frames of phases 3, 7,
-10, 12 and 13. Phases 15-16 run 4 shards on one card: they show the sharded
-path works there, not how it scales over cards.
+7, 10, 11, 12, 13, 15, 16 and the app and viewer runs of 17) and read just
+after: the splat kernel must have run on every one, the tile kernel on the
+tile-route frames of phases 3, 7, 10, 12 and 13. Phases 15-16 run 4 shards on
+one card: they show the sharded path works there, not how it scales over
+cards.
 
 It prints a JSON line with the kernels' launches, errors, times and bounds,
 the card line, and as its last line {"ok": true, "device": {...}}. Without a
@@ -860,6 +872,271 @@ def phase_sharded_ooc(las_dir, n, dev, card, launches):
         f"{time.perf_counter() - t_phase:.1f} s; card: {card}")
 
 
+# host reads of a tensor's value: each one waits for the device
+READS = ("__bool__", "item", "tolist", "__int__", "__float__", "__index__")
+
+
+class ReadCounter:
+    """Counts every host read of a tensor value (READS) while installed on
+    torch.Tensor."""
+
+    def __enter__(self):
+        import torch
+        self.n = 0
+        self._saved = {name: vars(torch.Tensor).get(name) for name in READS}
+        for name in READS:
+            def counted(t, *a, _orig=getattr(torch.Tensor, name), **k):
+                self.n += 1
+                return _orig(t, *a, **k)
+            setattr(torch.Tensor, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for name, orig in self._saved.items():
+            if orig is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, orig)
+
+
+def counted_syncs(eng, frame, what: str) -> int:
+    """Run frame(); its tensor reads must equal the engine's host_syncs
+    delta. Returns that delta."""
+    before = eng.host_syncs
+    with ReadCounter() as rc:
+        frame()
+    d = eng.host_syncs - before
+    check(rc.n == d > 0, f"{what}: {rc.n} tensor reads, host_syncs counted {d}")
+    return d
+
+
+def run_app(argv):
+    """simlod_tpu_torch.app.main(argv) in this process -> (rc, stdout)."""
+    import contextlib
+    import io
+    from simlod_tpu_torch import app
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = app.main(argv)
+    return rc, out.getvalue()
+
+
+def png_size(png: bytes):
+    check(png[:8] == b"\x89PNG\r\n\x1a\n" and png[12:16] == b"IHDR",
+          "not a PNG")
+    return int.from_bytes(png[16:20], "big"), int.from_bytes(png[20:24], "big")
+
+
+def decode_png(png: bytes):
+    """An 8-bit RGB, filter-0 PNG (viewer.encode_png's) -> [H, W, 3] uint8."""
+    import zlib
+    import numpy as np
+    w, h = png_size(png)
+    i, idat = 8, b""
+    while i < len(png):
+        n = int.from_bytes(png[i:i + 4], "big")
+        if png[i + 4:i + 8] == b"IDAT":
+            idat += png[i + 8:i + 8 + n]
+        i += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check((rows[:, 0] == 0).all(), "PNG rows not filter 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def rgb_coverage(rgb, C) -> float:
+    """Share of pixels of an [H, W, 3] image that are not background."""
+    import numpy as np
+    bg = np.array([(C.BACKGROUND_COLOR >> (8 * k)) & 0xFF for k in range(3)],
+                  np.uint8)
+    return float((rgb != bg).any(-1).mean())
+
+
+def http_get(base: str, path: str, timeout: float = 600):
+    """(body, wall ms) of GET base+path; a status other than 200 raises."""
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(base + path, timeout=timeout) as r:
+        body = r.read()
+        check(r.status == 200, f"GET {path}: status {r.status}")
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
+    """Phase 17 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    import shutil
+    import threading
+    import numpy as np
+    import torch
+    from simlod_tpu_torch import constants as C
+    from simlod_tpu_torch.engine import Engine
+    from simlod_tpu_torch.render import raster
+    from simlod_tpu_torch.render.render import image_to_rgba8
+    from simlod_tpu_torch.viewer import ViewerServer, encode_png
+    splat = raster.splat_resolve
+    report = lambda stdout: json.loads(stdout.strip().splitlines()[-1])
+    kept = lambda r: r["num_points"] + r["num_points_dropped"]
+
+    # the app in process: 30 orbit frames while phase 3's file streams
+    out = os.path.join(tmp, "app_frames")
+    splat.launches = 0
+    rc, stdout = run_app([path, "--frames", "30", "--width", str(W),
+                          "--height", str(H), "--out", out, "--json"])
+    launches["app"] = splat.launches
+    rep = report(stdout)
+    files = sorted(os.listdir(out))
+    check(rc == 0, f"app: exit code {rc}")
+    check(kept(rep) == n, f"app: points {rep['num_points']} + dropped "
+          f"{rep['num_points_dropped']} != {n}")
+    check(not rep["mem_capacity_reached"], "app: mem_capacity_reached")
+    check(len(files) == rep["frames"] >= 30,
+          f"app: {len(files)} frames written, report says {rep['frames']}")
+    cover = rgb_coverage(read_ppm(os.path.join(out, files[-1])), C)
+    check(cover > 0.05, f"app: only {cover:.3%} of the last frame drawn")
+    check(launches["app"] >= rep["frames"],
+          f"app: {launches['app']} splat launches for {rep['frames']} frames")
+    shutil.rmtree(out)
+    say(f"app in process (phase 3's file, --frames 30, 1920x1080, PPM, "
+        f"--json): {rep['frames']} frames in {rep['wall_seconds']:.2f} s wall "
+        f"= {rep['ingest_mps']:.2f} MP/s (load and frames); steps "
+        f"{rep['steps']}; host syncs {rep['host_syncs']} = "
+        f"{rep['host_syncs'] / rep['frames']:.1f}/frame; fused frames "
+        f"{rep['timings']['fused']['count']} avg "
+        f"{rep['timings']['fused']['avg_ms']:.2f} ms, render-only "
+        f"{rep['timings']['render']['count']} avg "
+        f"{rep['timings']['render']['avg_ms']:.2f} ms; {cover:.1%} of the last "
+        f"frame drawn; splat kernel launches {launches['app']}; card: {card}")
+
+    # the app on the LAS tiles: filter, boxes, PNG frames, the timing table
+    out = os.path.join(tmp, "app_png")
+    splat.launches = 0
+    rc, stdout = run_app([las_dir, "--frames", "8", "--width", str(W),
+                          "--height", str(H), "--benchmark", "--filter-colors",
+                          "--show-boxes", "--png", "--out", out])
+    launches["app"] += splat.launches
+    lines = stdout.splitlines()
+    rows = {ln.split()[0]: ln.strip() for ln in lines if ln.startswith("  ")}
+    check(rc == 0 and lines[0].startswith(f"loaded {n:,} points in "),
+          f"app --benchmark: rc {rc}, first line {lines[:1]}")
+    check({"fused", "render"} <= set(rows),
+          f"app --benchmark: timing rows {sorted(rows)}")
+    pngs = sorted(os.listdir(out))
+    check(len(pngs) >= 8 and all(p.endswith(".png") for p in pngs),
+          f"app --png: {pngs}")
+    for p in pngs:
+        with open(os.path.join(out, p), "rb") as f:
+            png = f.read()
+        check(png_size(png) == (W, H), f"{p}: {png_size(png)}")
+    last = decode_png(png)
+    check(last.shape == (H, W, 3) and rgb_coverage(last, C) > 0.05,
+          f"app --png: last frame {last.shape}, "
+          f"{rgb_coverage(last, C):.3%} drawn")
+    shutil.rmtree(out)
+    say(f"app in process (LAS tiles, --frames 8 --benchmark --filter-colors "
+        f"--show-boxes --png): {lines[0]}; {len(pngs)} PNGs of 1920x1080, the "
+        f"last decoded ({rgb_coverage(last, C):.1%} drawn); table: "
+        f"{' | '.join(rows.values())}; card: {card}")
+
+    # the app as a user starts it: a subprocess, on the card by default
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "simlod_tpu_torch.app", path,
+                          "--json"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    sub_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"python -m simlod_tpu_torch.app: rc "
+          f"{res.returncode}\n{res.stderr[-3000:]}")
+    srep = report(res.stdout)
+    check(kept(srep) == n and not srep["mem_capacity_reached"],
+          f"python -m simlod_tpu_torch.app: {srep['num_points']} points")
+    say(f"python -m simlod_tpu_torch.app <file> --json (subprocess, no "
+        f"--device): rc 0, {srep['num_points_processed']} points, command "
+        f"{sub_s:.2f} s, its own wall {srep['wall_seconds']:.2f} s = "
+        f"{srep['ingest_mps']:.2f} MP/s; card: {card}")
+
+    # the viewer, serving a fresh engine while it streams phase 3's file
+    splat.launches = 0
+    eng = Engine(device=dev)
+    eng.open([path])
+    v = ViewerServer(eng, W, H, port=0)
+    base = f"http://127.0.0.1:{v.bind()}"
+    threading.Thread(target=v.serve_forever, daemon=True).start()
+    try:
+        page, _ = http_get(base, "/")
+        check(b"canvas" in page, "viewer: / is not the page")
+        o = eng.orbit
+        yaw0, pitch, radius = o.yaw, o.pitch, o.radius
+        frames = []
+        for i in range(20):
+            png, ms = http_get(base, f"/frame?yaw={yaw0 + 0.05 * i}"
+                               f"&pitch={pitch}&radius={radius}")
+            check(png_size(png) == (W, H), f"viewer frame {i}: "
+                  f"{png_size(png)}")
+            st = json.loads(http_get(base, "/stats")[0])
+            frames.append((ms, st["render_ms"], st["streaming"]))
+        check(frames[0][2] and not frames[-1][2],
+              f"viewer: streaming {[f[2] for f in frames]}")
+        check(kept(st) == n, f"viewer: {st['num_points']} points")
+        bench, bench_ms = http_get(base, "/bench?frames=20")
+        bench = json.loads(bench)
+        check(bench["frames"] == 20, f"viewer /bench: {bench['frames']}")
+        reset, reset_ms = http_get(base, "/bench?frames=5&reset=1")
+        reset = json.loads(reset)
+        rep = eng.report()
+        check(eng._last_paths == [path] and eng.last_batch_finished
+              and kept(rep) == n and rep["num_points_processed"] == n,
+              f"viewer reset: {rep['num_points']} points")
+        check(reset["frames"] >= 5, f"viewer reset: {reset['frames']} frames")
+        launches["viewer"] = splat.launches
+        check(launches["viewer"] >= 40 + reset["frames"],
+              f"viewer: {launches['viewer']} splat launches")
+        img, _ = eng.render(W, H)
+        rgb = np.ascontiguousarray(image_to_rgba8(img)[::-1, :, :3])
+        enc = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            png = encode_png(rgb)
+            enc.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        v.shutdown()
+    post = [f for f in frames if not f[2]]
+    med = lambda xs: float(np.median(xs))
+    say(f"viewer (fresh Engine streaming phase 3's file, 1920x1080): "
+        f"{sum(f[2] for f in frames)} of 20 /frame requests while streaming "
+        f"(request ms {', '.join(f'{f[0]:.1f}' for f in frames if f[2])}; "
+        f"render_ms {', '.join(f'{f[1]:.1f}' for f in frames if f[2])}); "
+        f"post-load /frame request median {med([f[0] for f in post]):.2f} ms "
+        f"vs render_ms median {med([f[1] for f in post]):.2f} ms vs "
+        f"encode_png alone {med(enc):.2f} ms ({len(png) / 1e6:.2f} MB PNG); "
+        f"/bench?frames=20 {bench_ms:.1f} ms (frame avg "
+        f"{bench['timings']['frame']['avg_ms']:.2f} ms); "
+        f"/bench?frames=5&reset=1 {reset_ms:.1f} ms = {n / reset_ms / 1e3:.2f}"
+        f" MP/s over {reset['frames']} frames, {rep['num_points']} points "
+        f"again; splat kernel launches {launches['viewer']}; card: {card}")
+
+    # every tensor read of a frame is a counted host sync
+    eng.settings.point_budget = 0.0
+    eng.render(W, H)
+    exact = counted_syncs(eng, lambda: eng.render(W, H), "exact 1080p frame")
+    eng.settings.point_budget = 1.0
+    eng.render(W, H)         # builds the draw pool
+    pooled = counted_syncs(eng, lambda: eng.render(W, H), "pooled 1080p frame")
+    eng.settings.frame_budget_ms = 50.0
+    eng.open([path], chunk_steps=1)        # phase 6's loop
+    streamed = [counted_syncs(eng, lambda: eng.frame(W, H),
+                              f"streamed frame {i}") for i in range(3)]
+    eng.stream.stop()
+    say(f"host syncs per 1080p frame, every tensor read counted (__bool__, "
+        f"item, tolist, __int__, __float__, __index__) and equal to host_syncs:"
+        f" exact {exact}, pooled {pooled}, streamed pooled {streamed}; "
+        f"phase 17 {time.perf_counter() - t_phase:.1f} s; card: {card}")
+    del eng, img
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--points", type=int, default=36_000_000)
@@ -1320,6 +1597,11 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_sharded_ooc(dirs["las"], n, dev, card, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- phase 17: the app and the viewer on the card ---
+        phase_app_viewer(tmp, path, dirs["las"], n, dev, card, launches)
 
     say("frame median ms, splat route vs tile route, interleaved: " + json.dumps(
         {k: [round(v[0], 2), round(v[1], 2)] for k, v in route_ms.items()}))

@@ -254,6 +254,7 @@ class Engine:
         self.reset(np.zeros(3, np.float32), box.astype(np.float32))
         self.stream = stream
         self._stream_iter = iter(stream)
+        self._last_paths = list(paths)   # the viewer's "Reset + Benchmark"
         return stream
 
     # --- construction ---
@@ -266,14 +267,20 @@ class Engine:
         self.host_syncs += 1
         return torch.stack([t.to(torch.int64) for t in tensors]).tolist()
 
+    def _built(self, fn, *args):
+        """fn(*args) (a builder call), adding its device reads to host_syncs."""
+        syncs = build.host_syncs
+        try:
+            return fn(*args)
+        finally:
+            self.host_syncs += build.host_syncs - syncs
+
     def ingest(self, x, y, z, rgba, count: int, sync: bool = True) -> None:
         """One build step (build_step: no in-loop compaction); with sync the
         host-side compaction policy runs after and the device is waited on."""
         t0 = time.perf_counter()
-        syncs = build.host_syncs
-        self.state = build.build_step(self.cfg, self.state, x, y, z, rgba,
-                                      int(count))
-        self.host_syncs += build.host_syncs - syncs
+        self.state = self._built(build.build_step, self.cfg, self.state, x, y,
+                                 z, rgba, int(count))
         self.steps += 1
         self._steps_since_poll += 1
         if sync:
@@ -286,10 +293,8 @@ class Engine:
         compacts at the watermark); sync as in `ingest`."""
         t0 = time.perf_counter()
         bx, by, bz, bc, counts = item
-        syncs = build.host_syncs
-        self.state = build.build_many(self.cfg, self.state, bx, by, bz, bc,
-                                      counts)
-        self.host_syncs += build.host_syncs - syncs
+        self.state = self._built(build.build_many, self.cfg, self.state, bx, by,
+                                 bz, bc, counts)
         self.steps += bx.shape[0]
         self._steps_since_poll += bx.shape[0]
         if sync:
@@ -371,7 +376,8 @@ class Engine:
             self.last_batch_finished = True
         self._splits_finished = True
         self.finish_splits()
-        self._capacity_flag = bool(self.state.mem_capacity_reached)
+        self._capacity_flag = bool(
+            self._read([self.state.mem_capacity_reached])[0])
         self._steps_since_poll = 0
         self.t_build.add(time.perf_counter() - t0)
 
@@ -388,15 +394,14 @@ class Engine:
         """End-of-load split convergence: split leaves still over the threshold
         (round-1 budgets may have deferred them) until none is; returns the
         rounds run."""
-        syncs = build.host_syncs
         rounds = 0
         while rounds < max_rounds:
             ids, n = build.overfull_leaf_ids(self.cfg, self.state)
-            if build._host(n) == 0:
+            if self._built(build._host, n) == 0:
                 break
-            self.state = build.split_finish(self.cfg, self.state, ids)
+            self.state = self._built(build.split_finish, self.cfg, self.state,
+                                     ids)
             rounds += 1
-        self.host_syncs += build.host_syncs - syncs
         return rounds
 
     def _marks(self) -> dict:
@@ -422,13 +427,14 @@ class Engine:
         self._adapt_candidate_windows()
         threshold = int(self.cfg.voxel_capacity * self.cfg.voxel_compact_watermark)
         if force or m["vox_used"] > threshold:
-            self.state = build.compact_voxels_auto(self.cfg, self.state,
-                                                   used=m["vox_used"])
+            self.state = self._built(build.compact_voxels_auto, self.cfg,
+                                     self.state, m["vox_used"])
             m = self._marks()
             seg_limit = min(self.cfg.seg_scan_window,
                             self.cfg.segment_capacity) // 2
             if m["num_segments"] > seg_limit:
-                self.state = build.compact_segments(self.cfg, self.state)
+                self.state = self._built(build.compact_segments, self.cfg,
+                                         self.state)
 
     def _adapt_candidate_windows(self):
         """Upsize the multi-level candidate window under sustained drops (more
@@ -643,19 +649,19 @@ class Engine:
             # a one-step item rides as a K=1 chunk, through build_many
             rebuilt = self._ensure_stream_pool()
             args = self._pooled_args(u, rebuilt, self._marks())
-            self.state, img, fstats = _fused_chunk_pooled(
-                self.cfg, self.state, width, height, bx, by, bz, bc, counts,
-                *args, self._draw_pool, u)
+            self.state, img, fstats = self._built(
+                _fused_chunk_pooled, self.cfg, self.state, width, height, bx,
+                by, bz, bc, counts, *args, self._draw_pool, u)
             k = bx.shape[0]
         elif self.stream.chunk_steps == 1:
-            self.state, img, fstats = _fused_step(
-                self.cfg, self.state, width, height, bx[0], by[0], bz[0], bc[0],
-                int(counts[0]), *self._windows(), u)
+            self.state, img, fstats = self._built(
+                _fused_step, self.cfg, self.state, width, height, bx[0], by[0],
+                bz[0], bc[0], int(counts[0]), *self._windows(), u)
             k = 1
         else:
-            self.state, img, fstats = _fused_chunk(
-                self.cfg, self.state, width, height, bx, by, bz, bc, counts,
-                *self._windows(), u)
+            self.state, img, fstats = self._built(
+                _fused_chunk, self.cfg, self.state, width, height, bx, by, bz,
+                bc, counts, *self._windows(), u)
             k = bx.shape[0]
         self.steps += k
         self._steps_since_poll += k

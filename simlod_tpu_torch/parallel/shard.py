@@ -227,8 +227,10 @@ def _route_step(cfg: EngineConfig, mesh: Mesh, level: int, slot_factor: int,
 
 
 def _uniforms_on(u: Uniforms, device) -> Uniforms:
-    return dataclasses.replace(u, **{f.name: getattr(u, f.name).to(device)
-                                     for f in dataclasses.fields(u)})
+    """`u` with its tensors on `device` (the host flags stay as they are)."""
+    return dataclasses.replace(u, **{
+        f.name: getattr(u, f.name).to(device) for f in dataclasses.fields(u)
+        if isinstance(getattr(u, f.name), torch.Tensor)})
 
 
 def _render(cfg: EngineConfig, mesh: Mesh, states: list[OctreeState],

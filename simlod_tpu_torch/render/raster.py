@@ -131,17 +131,16 @@ def _lod_color(level: torch.Tensor) -> torch.Tensor:
 
 
 def _sample_colors(s: Samples, uniforms: Uniforms) -> torch.Tensor:
-    """Debug colour modes; their node/level gathers run only when one is on."""
-    if not bool(uniforms.color_by_node | uniforms.color_by_lod
-                | uniforms.color_white):
-        return s.rgba
+    """Debug colour modes; their node/level gathers run only when one is on
+    (the switches are the host flags: no device read)."""
+    f = uniforms.flags
     color = s.rgba
-    if bool(uniforms.color_by_node):
+    if f.color_by_node:
         node = (s.node_fn() % 127).to(torch.int64)
         color = u32_bits((node * 123456789) & 0xFFFFFFFF)
-    if bool(uniforms.color_by_lod):
+    if f.color_by_lod:
         color = _lod_color(s.level_fn())
-    if bool(uniforms.color_white):
+    if f.color_white:
         color = torch.full_like(s.rgba, 0x00FFFFFF)
     return color
 
@@ -314,7 +313,7 @@ def edl(color: torch.Tensor, depth_bits: torch.Tensor, uniforms: Uniforms,
     response = sum over 4 neighbours of max(log2(d) - log2(d_n), 0) / 50;
     shade = exp(-response * 300 * edlStrength). Background pairs give inf - inf =
     NaN, which CUDA's fmaxf treats as 0."""
-    if not bool(uniforms.enable_edl):
+    if not uniforms.flags.enable_edl:
         return color
     d = depth_bits.view(torch.float32).reshape(height, width)
     logd = torch.log2(d)

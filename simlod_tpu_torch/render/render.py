@@ -81,7 +81,7 @@ def _rasterize(cfg: EngineConfig, uniforms: Uniforms, width: int, height: int,
                                                     height, sets)
     else:
         color, depth = raster.rasterize(cfg, uniforms, width, height, sets)
-    if not bool(uniforms.show_bounding_box):
+    if not uniforms.flags.show_bounding_box:
         return color, depth
     # the frustum rides the same flag and draw list as in the reference
     # (render.cu:1197-1229)

@@ -7,6 +7,7 @@ Tolerances: report(), visible_bricks, page_in and auto_page decisions equal;
 composited frames bit-equal; each brick's voxel keys equal as sets; the
 composite equal to a host depth-min select over the per-brick planes.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -120,7 +121,9 @@ def test_composite_frames_runs_edl_once(engines):
     from simlod_tpu_torch.render.render import composite_frames
     _, t = engines
     planes, u = t.render_planes(W, H)
+    # the render path branches on the host flag; the tensor stays in step
     u.enable_edl = torch.tensor(True)
+    u.flags = dataclasses.replace(u.flags, enable_edl=True)
     img, depth = composite_frames(torch.stack([p[1] for p in planes]),
                                   torch.stack([p[2] for p in planes]), u, W, H)
     k = torch.argmin(torch.stack([p[2] for p in planes]), 0)

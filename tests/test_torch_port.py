@@ -23,7 +23,7 @@ from simlod_tpu_torch.render import raster, raster_tiles
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.config",
+MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.app", "simlod_tpu_torch.config",
            "simlod_tpu_torch.constants", "simlod_tpu_torch.engine",
            "simlod_tpu_torch.kernels", "simlod_tpu_torch.native",
            "simlod_tpu_torch.outofcore", "simlod_tpu_torch.formats.las",
@@ -44,7 +44,10 @@ MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.config",
            "simlod_tpu_torch.render.raster_tiles",
            "simlod_tpu_torch.render.render",
            "simlod_tpu_torch.render.visibility",
-           "simlod_tpu_torch.tools.las2simlod"]
+           "simlod_tpu_torch.tools.las2simlod",
+           "simlod_tpu_torch.utils.debugprint",
+           "simlod_tpu_torch.utils.hostutils",
+           "simlod_tpu_torch.utils.hotreload", "simlod_tpu_torch.viewer"]
 
 
 def test_port_never_imports_jax():
@@ -72,7 +75,8 @@ def test_every_port_module_is_listed():
     assert found - {"simlod_tpu_torch.formats", "simlod_tpu_torch.io",
                     "simlod_tpu_torch.octree", "simlod_tpu_torch.ops",
                     "simlod_tpu_torch.parallel", "simlod_tpu_torch.render",
-                    "simlod_tpu_torch.tools"} == set(MODULES)
+                    "simlod_tpu_torch.tools",
+                    "simlod_tpu_torch.utils"} == set(MODULES)
 
 
 def _stream(n_tiles=4):
