@@ -8,18 +8,25 @@ Phases (every one must pass; a failure raises and exits non-zero):
      the CUDA kernels from simlod_tpu_torch/csrc with nvcc, print the seconds;
   2. small reference: a 60k-point terrain through Engine on the GPU and on the
      CPU (plain PyTorch versions of the kernels): equal counters, images within
-     1 per channel of each other and of the goldens in tests/golden/;
+     1 per channel of each other and of the goldens in tests/golden/; then
+     point size 2 and each debug colour mode (by node, by LOD, white), GPU
+     against CPU: within 1 per channel with EDL, bit-equal without;
   3. bulk path: a seeded synthetic terrain of N points (default 36M, the size
      of the Morro Bay file) written as .simlod, then Engine(cfg=None).open ->
-     load_all -> render(1920, 1080) (exact, through the splat kernel); the
-     same frame then through both routes in turn (the splat route and the
-     tile route, use_tile_raster=True), timed alike and bit-equal;
+     load_all -> render(1920, 1080) (exact, through the splat_samples
+     kernel); the same frame then through both routes in turn (the default
+     route and the tile route, use_tile_raster=True), timed alike and
+     bit-equal; torch.profiler over the frame (device ms, idle share, kernels
+     per frame);
   4. kernels against plain versions, in both shading modes, bit-equal, timed
-     with CUDA events after a warm-up: that frame's columns through the CUDA
-     splat kernel and its plain PyTorch version; its packed, sorted stream
-     through the CUDA tile kernel and its plain version; the stage time of
-     each route (columns + splat, pack_samples + tile resolve) on the same
-     sample sets;
+     with CUDA events after a warm-up: that frame's sample sources through
+     the CUDA splat_samples kernel and its plain PyTorch version
+     (`samples_vs_plain`, which also times the previous design's stage,
+     materialize + columns + splat_resolve, against splat_samples, in
+     turns); its columns through splat_resolve and its plain version; its
+     packed, sorted stream through the CUDA tile kernel and its plain
+     version; the stage time of the column routes (columns + splat_resolve,
+     pack_samples + tile resolve) on the same sample sets;
   5. small streamed reference: the 60k file through Engine.frame(160, 120)
      until the stream drains (one step per item, frame_budget_ms 0) on the GPU
      and the CPU: with point_budget 0 equal Stats and images within 1 per
@@ -31,7 +38,8 @@ Phases (every one must pass; a failure raises and exits non-zero):
      point_budget 1.0 and frame_budget_ms 50 and the orbit yaw advanced 0.03
      rad per frame; the tree must equal phase 3's;
   7. post-load pooled vs exact 1080p frame on that loaded state, each also
-     through both routes in turn (bit-equal images, both routes timed);
+     through both routes in turn (bit-equal images, both routes timed), and
+     profiled at the auto-focus view;
   8. kernels against plain versions on the pooled frame's four sample sets
      (pool points, pool voxels, exact points, exact voxels), both modes;
   9. small references with the new modules, GPU against CPU: the 60k file with
@@ -88,12 +96,15 @@ Phases (every one must pass; a failure raises and exits non-zero):
      re-opens the file and times the whole load); then every tensor read of
      an exact, a pooled and a streamed 1080p frame counted and held equal to
      the engine's host_syncs.
-Every kernel launch counter is zeroed just before each main path (phases 3, 6,
-7, 10, 11, 12, 13, 15, 16 and the app and viewer runs of 17) and read just
-after: the splat kernel must have run on every one, the tile kernel on the
-tile-route frames of phases 3, 7, 10, 12 and 13. Phases 15-16 run 4 shards on
-one card: they show the sharded path works there, not how it scales over
-cards.
+Phases 10, 13 and 15 hold splat_samples and splat_resolve to their plain
+versions on their frames' sample sets as phase 4 does. Every kernel launch
+counter is zeroed just before each main path (phases 3, 6, 7, 10, 11, 12, 13,
+15, 16 and the app and viewer runs of 17) and read just after: splat_samples
+must have run on every one, the tile kernel on the tile-route frames of
+phases 3, 7, 10, 12 and 13; splat_resolve, off the frame path, on none
+(launches made to compare a kernel with its plain version are not counted).
+Phases 15-16 run 4 shards on one card: they show the sharded path works
+there, not how it scales over cards.
 
 It prints a JSON line with the kernels' launches, errors, times and bounds,
 the card line, and as its last line {"ok": true, "device": {...}}. Without a
@@ -195,6 +206,60 @@ def phase_small_reference(tmp, device):
         check(ok, f"{name}: GPU image vs golden max diff {g.max()}")
         say(f"small reference {name}: counters equal, GPU-CPU max diff "
             f"{d.max()}, GPU-golden max diff {g.max()}")
+
+
+# phase 2's draw modes: (name, max_point_size, Settings overrides)
+MODES = (("point_size 2", 2, dict(point_size=2)),
+         ("color_by_node", 1, dict(color_by_node=True)),
+         ("color_by_lod", 1, dict(color_by_lod=True)),
+         ("color_white", 1, dict(color_white=True)))
+
+
+def mode_frames(path, device):
+    """The 60k file's frame in each of MODES, with EDL on and off, through
+    Engine on `device` -> {(mode, edl): rgb}."""
+    from simlod_tpu_torch.config import EngineConfig, Settings
+    from simlod_tpu_torch.engine import Engine
+    from simlod_tpu_torch.render.render import image_to_rgba8
+    out = {}
+    for name, mps, kw in MODES:
+        eng = Engine(EngineConfig(**GOLDEN_CFG, max_point_size=mps),
+                     Settings(min_node_size=8.0, **kw), device=device)
+        eng.open([path])
+        eng.load_all()
+        eng.orbit.yaw, eng.orbit.pitch = 0.3, -0.6
+        eng.camera.world = eng.orbit.world()
+        for edl in (True, False):
+            eng.settings.enable_edl = edl
+            out[(name, edl)] = image_to_rgba8(
+                eng.render(160, 120)[0])[..., :3].astype(int)
+        eng.stream.stop()
+    return out
+
+
+def phase_small_modes(tmp, device):
+    """Phase 2's draw modes: point size 2 and the three debug colour modes,
+    GPU (splat_samples) against CPU (its plain version)."""
+    import numpy as np
+    from simlod_tpu_torch.render import raster
+    path = os.path.join(tmp, "golden.simlod")
+    raster.splat_samples.launches = 0
+    gpu = mode_frames(path, device)
+    n = raster.splat_samples.launches
+    cpu = mode_frames(path, "cpu")
+    check(n >= 2 * len(MODES), f"draw modes: {n} splat_samples launches")
+    diffs = {}
+    for key in gpu:
+        d = int(np.abs(gpu[key] - cpu[key]).max())
+        # EDL's log2/exp may round differently on the GPU and the CPU
+        check(d <= (1 if key[1] else 0),
+              f"{key[0]}, EDL {key[1]}: GPU vs CPU max diff {d}")
+        diffs[f"{key[0]}{', EDL' if key[1] else ''}"] = d
+    plain = {k[0]: gpu[k] for k in gpu if not k[1]}
+    check(all((plain[m] != plain["point_size 2"]).any() for m in plain
+              if m != "point_size 2"), "a draw mode drew the same frame")
+    say(f"small draw modes, GPU vs CPU max diff per channel (bit-equal with "
+        f"EDL off): {diffs}; {n} splat_samples launches")
 
 
 def streamed_frames(path, device, point_budget, on_frame=None):
@@ -571,7 +636,7 @@ def device_profile(render, what: str, card: str, reps: int = 3):
 
 
 def splat_vs_plain(cfg, u, sets, what: str, card: str):
-    """The splat kernel and its plain version on one frame's columns:
+    """The splat_resolve kernel and its plain version on one frame's columns:
     bit-equal, both timed with CUDA events. Then the stage time of each route
     on the same sample sets: columns + splat kernel, and pack_samples (sort +
     prepass) + tile kernel.
@@ -581,14 +646,23 @@ def splat_vs_plain(cfg, u, sets, what: str, card: str):
     npx = W * H
     cols = raster.splat_columns(cfg, u, W, H, sets, npx)
     mode = u.use_high_quality_shading.to(torch.int32).reshape(1)
+    with uncounted():
+        return _splat_vs_plain(cfg, u, sets, what, card, cols, mode, npx)
+
+
+def _splat_vs_plain(cfg, u, sets, what, card, cols, mode, npx):
+    import torch
+    from simlod_tpu_torch.render import raster, raster_tiles
     kc, kd = raster.splat_resolve(*cols, mode, npx)
     rc, rd = raster.splat_resolve_reference(*cols, mode, npx)
     torch.cuda.synchronize()
     err = max(int((kc.long() - rc.long()).abs().max()),
               int((kd.long() - rd.long()).abs().max()))
     check(torch.equal(kc, rc) and torch.equal(kd, rd),
-          f"splat kernel != plain version ({what}, max err {err})")
+          f"splat_resolve != plain version ({what}, max err {err})")
     ms = time_ms(lambda: raster.splat_resolve(*cols, mode, npx))
+    dev_ms = kernel_device_ms(lambda: raster.splat_resolve(*cols, mode, npx),
+                              "splat_")
     plain_ms = time_ms(lambda: raster.splat_resolve_reference(*cols, mode,
                                                               npx))
     stage = time_ms(lambda: raster.splat_resolve(
@@ -602,12 +676,109 @@ def splat_vs_plain(cfg, u, sets, what: str, card: str):
     # second pass over the rows with HQS, the resolve's reads)
     bound = bound_ms(S * 12 + 4 + npx * 8)
     traffic = bound_ms((S * 24 + npx * 56) if hqs else (S * 12 + npx * 24))
-    say(f"splat_resolve, {what}: {S} rows: kernel {ms:.4f} ms; plain "
-        f"{plain_ms:.4f} ms; "
+    dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    say(f"splat_resolve, {what}: {S} rows: kernel {ms:.4f} ms ({dev} on "
+        f"the device); plain {plain_ms:.4f} ms; "
         f"bound {bound:.4f} ms (design traffic {traffic:.4f} ms); stage: "
-        f"columns + splat {stage:.4f} ms vs pack_samples + tile resolve "
-        f"{tile_stage:.4f} ms; bit-equal; card: {card}")
-    return err, ms, plain_ms, bound, stage, tile_stage
+        f"materialize + columns + splat {stage:.4f} ms vs pack_samples + tile "
+        f"resolve {tile_stage:.4f} ms; bit-equal; card: {card}")
+    return err, ms, plain_ms, bound, stage, tile_stage, dev_ms
+
+
+def kernel_device_ms(fn, name: str, reps: int = 10):
+    """Device ms per call of fn spent in the kernels whose name contains
+    `name` (torch.profiler, after a warm-up): a kernel's own time, where
+    CUDA events around back-to-back calls time its wrapper's host work when
+    that is longer. None where the profiler recorded no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def interleaved_ms(fns, reps: int = 10, rounds: int = 4) -> list:
+    """CUDA-event ms per call of each of `fns`, timed in turns (ABBA...):
+    the mean over `rounds` runs of time_ms(fn, reps)."""
+    out = [0.0] * len(fns)
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            out[i] += time_ms(fns[i], reps) / rounds
+    return out
+
+
+class uncounted:
+    """Keeps the launch counters of the splat kernels as they were: launches
+    made to compare a kernel with its plain version are not the path's."""
+
+    def __enter__(self):
+        from simlod_tpu_torch.render import raster
+        self.saved = [(f, f.launches) for f in (raster.splat_samples,
+                                                raster.splat_resolve)]
+
+    def __exit__(self, *exc):
+        for f, n in self.saved:
+            f.launches = n
+
+
+def samples_vs_plain(cfg, u, sets, what: str, card: str):
+    """The splat_samples kernel and its plain version (materialize +
+    splat_columns + splat_resolve_reference) on one frame's sample sources:
+    bit-equal, both timed with CUDA events after a warm-up. Then the stage
+    of the two designs on the same sources, timed in turns: "materialize +
+    columns + splat_resolve" (the previous frame path) against
+    "splat_samples". ms is the kernel's device time (its four launches, by
+    torch.profiler), call ms the CUDA-event time per call (wrapper
+    included). Returns (max abs err, ms, plain ms, bound ms, previous stage
+    ms, stage ms, drawn rows, call ms)."""
+    import torch
+    from simlod_tpu_torch.render import raster
+    npx = W * H
+    with uncounted():
+        kc, kd = raster.splat_samples(cfg, u, W, H, sets)
+        rc, rd = raster.splat_samples_reference(cfg, u, W, H, sets)
+        torch.cuda.synchronize()
+        err = max(int((kc.long() - rc.long()).abs().max()),
+                  int((kd.long() - rd.long()).abs().max()))
+        check(torch.equal(kc, rc) and torch.equal(kd, rd),
+              f"splat_samples != plain version ({what}, max err {err})")
+        call_ms = time_ms(lambda: raster.splat_samples(cfg, u, W, H, sets))
+        ms = kernel_device_ms(lambda: raster.splat_samples(cfg, u, W, H, sets),
+                              "splat_")
+        plain_ms = time_ms(lambda: raster.splat_samples_reference(
+            cfg, u, W, H, sets))
+        mode = u.use_high_quality_shading.to(torch.int32).reshape(1)
+        prev, stage = interleaved_ms([
+            lambda: raster.splat_resolve(
+                *raster.splat_columns(cfg, u, W, H, sets, npx), mode, npx),
+            lambda: raster.splat_samples(cfg, u, W, H, sets)])
+    # what the function must move: the 16 B of every drawn row, r_ok of every
+    # plan block and the other 16 B of a block that holds rows, the colour
+    # and depth of every pixel written once
+    rows = sum(int(raster.materialize(s).valid.sum()) for s in sets)
+    blocks = sum(s.plan.out_len // 128 for s in sets)
+    full = sum(int(s.plan.r_ok.sum()) for s in sets)
+    bound = bound_ms(16 * rows + blocks + 16 * full + 8 * npx)
+    if ms is None:
+        say(f"splat_samples, {what}: torch.profiler recorded no kernel time "
+            f"(not measured); the CUDA-event time per call stands for it")
+        ms = call_ms
+    say(f"splat_samples, {what}: {len(sets)} sets, {rows} drawn rows in "
+        f"{full} of {blocks} plan blocks: kernel {ms:.4f} ms on the device "
+        f"({call_ms:.4f} ms per call by CUDA events, wrapper included); plain "
+        f"{plain_ms:.4f} ms; bound {bound:.4f} ms; stage, timed in turns: "
+        f"materialize + columns + splat_resolve {prev:.4f} ms vs "
+        f"splat_samples {stage:.4f} ms; bit-equal; card: {card}")
+    return err, ms, plain_ms, bound, prev, stage, rows, call_ms
 
 
 N_SHARDS = 4
@@ -717,7 +888,7 @@ def shard_shares(xyz, cube: float, n: int) -> list:
     return torch.bincount(own.long(), minlength=n).tolist()
 
 
-def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows):
+def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows, xrows):
     """Phase 15 (see the module docstring)."""
     t_phase = time.perf_counter()
     import numpy as np
@@ -739,7 +910,7 @@ def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows):
     cfg = EngineConfig.auto(total_points=max(shares),
                             memory_bytes=free // N_SHARDS)
     torch.cuda.reset_peak_memory_stats()
-    raster.splat_resolve.launches = 0
+    raster.splat_samples.launches = 0
     eng = ShardedEngine(cfg, mesh=mesh, width=W, height=H,
                         settings=Settings(), slot_factor=N_SHARDS)
     eng.open([path])
@@ -758,7 +929,7 @@ def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows):
     frame()
     first_ms = (time.perf_counter() - t1) * 1e3
     med_ms, img = median_ms(frame)
-    launches["sharded"] = raster.splat_resolve.launches
+    launches["sharded"] = raster.splat_samples.launches
     peak = torch.cuda.max_memory_allocated()
     per_shard = [[int(v) for v in (
         torch.where(st.child_base < 0, st.num_points, 0).sum(),
@@ -795,13 +966,15 @@ def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows):
         f"frame first {first_ms:.2f} ms, then median {med_ms:.2f} ms; "
         f"{cover:.1%} of pixels drawn, silhouette IoU {iou:.3f} vs the "
         f"single engine's frame; composite equals the host depth-min of the "
-        f"shard planes; splat kernel launches {launches['sharded']}; card: "
+        f"shard planes; splat_samples launches {launches['sharded']}; card: "
         f"{card}")
     for hqs in (True, False):
         eng.settings.use_high_quality_shading = hqs
         u = eng.uniforms()
         _, sets, _ = frame_samples(cfg, eng.state[0], u)
         srows[("sharded shard 0", hqs)] = splat_vs_plain(
+            cfg, u, sets, f"sharded shard 0's frame, hqs={hqs}", card)
+        xrows[("sharded shard 0", hqs)] = samples_vs_plain(
             cfg, u, sets, f"sharded shard 0's frame, hqs={hqs}", card)
     eng.stream.stop()
     say(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
@@ -831,7 +1004,7 @@ def phase_sharded_ooc(las_dir, n, dev, card, launches):
     check(N_SHARDS * cfg.point_capacity < n,
           f"sharded out-of-core: {N_SHARDS} x {cfg.point_capacity} points "
           f"hold the whole {n}")
-    raster.splat_resolve.launches = 0
+    raster.splat_samples.launches = 0
     ooc = ShardedOutOfCoreEngine(cfg, mesh=mesh, width=W, height=H,
                                  settings=Settings(), slot_factor=N_SHARDS)
     ooc.open([las_dir])
@@ -848,7 +1021,7 @@ def phase_sharded_ooc(las_dir, n, dev, card, launches):
         torch.cuda.synchronize()
         return out
     med_ms, (img, depth) = median_ms(frame)
-    launches["sharded_ooc"] = raster.splat_resolve.launches
+    launches["sharded_ooc"] = raster.splat_samples.launches
     check(rep["total_points"] == n,
           f"sharded out-of-core: {rep['total_points']} points of {n}")
     check(launches["sharded_ooc"] >= 6 * len(brick_s) * N_SHARDS,
@@ -868,7 +1041,7 @@ def phase_sharded_ooc(las_dir, n, dev, card, launches):
         f"voxels, {rep['total_nodes']} nodes, host bytes {rep['host_bytes']}; "
         f"composited 1920x1080 frame median {med_ms:.2f} ms, {cover:.1%} of "
         f"pixels drawn, equal to the host depth-min of the brick planes; "
-        f"splat kernel launches {launches['sharded_ooc']}; phase "
+        f"splat_samples launches {launches['sharded_ooc']}; phase "
         f"{time.perf_counter() - t_phase:.1f} s; card: {card}")
 
 
@@ -974,7 +1147,7 @@ def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
     from simlod_tpu_torch.render import raster
     from simlod_tpu_torch.render.render import image_to_rgba8
     from simlod_tpu_torch.viewer import ViewerServer, encode_png
-    splat = raster.splat_resolve
+    splat = raster.splat_samples
     report = lambda stdout: json.loads(stdout.strip().splitlines()[-1])
     kept = lambda r: r["num_points"] + r["num_points_dropped"]
 
@@ -995,7 +1168,7 @@ def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
     cover = rgb_coverage(read_ppm(os.path.join(out, files[-1])), C)
     check(cover > 0.05, f"app: only {cover:.3%} of the last frame drawn")
     check(launches["app"] >= rep["frames"],
-          f"app: {launches['app']} splat launches for {rep['frames']} frames")
+          f"app: {launches['app']} splat_samples launches for {rep['frames']} frames")
     shutil.rmtree(out)
     say(f"app in process (phase 3's file, --frames 30, 1920x1080, PPM, "
         f"--json): {rep['frames']} frames in {rep['wall_seconds']:.2f} s wall "
@@ -1006,7 +1179,7 @@ def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
         f"{rep['timings']['fused']['avg_ms']:.2f} ms, render-only "
         f"{rep['timings']['render']['count']} avg "
         f"{rep['timings']['render']['avg_ms']:.2f} ms; {cover:.1%} of the last "
-        f"frame drawn; splat kernel launches {launches['app']}; card: {card}")
+        f"frame drawn; splat_samples launches {launches['app']}; card: {card}")
 
     # the app on the LAS tiles: filter, boxes, PNG frames, the timing table
     out = os.path.join(tmp, "app_png")
@@ -1091,7 +1264,7 @@ def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
         check(reset["frames"] >= 5, f"viewer reset: {reset['frames']} frames")
         launches["viewer"] = splat.launches
         check(launches["viewer"] >= 40 + reset["frames"],
-              f"viewer: {launches['viewer']} splat launches")
+              f"viewer: {launches['viewer']} splat_samples launches")
         img, _ = eng.render(W, H)
         rgb = np.ascontiguousarray(image_to_rgba8(img)[::-1, :, :3])
         enc = []
@@ -1114,7 +1287,7 @@ def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
         f"{bench['timings']['frame']['avg_ms']:.2f} ms); "
         f"/bench?frames=5&reset=1 {reset_ms:.1f} ms = {n / reset_ms / 1e3:.2f}"
         f" MP/s over {reset['frames']} frames, {rep['num_points']} points "
-        f"again; splat kernel launches {launches['viewer']}; card: {card}")
+        f"again; splat_samples launches {launches['viewer']}; card: {card}")
 
     # every tensor read of a frame is a counted host sync
     eng.settings.point_budget = 0.0
@@ -1156,7 +1329,8 @@ def main(argv=None) -> int:
     from simlod_tpu_torch.render import raster, raster_tiles
     from simlod_tpu_torch.render.render import (frame_samples,
                                                 pooled_frame_samples)
-    splat, tile = raster.splat_resolve, raster_tiles.tile_resolve
+    splat, tile = raster.splat_samples, raster_tiles.tile_resolve
+    resolve = raster.splat_resolve
 
     dev = torch.device("cuda")
     # --- phase 1: card and build ---
@@ -1171,6 +1345,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # --- phase 2: small reference ---
         phase_small_reference(tmp, dev)
+        phase_small_modes(tmp, dev)
 
         # --- phase 3: bulk path ---
         n = args.points
@@ -1182,7 +1357,7 @@ def main(argv=None) -> int:
             f"({os.path.getsize(path) / 1e6:.0f} MB)")
 
         launches, tile_launches = {}, {}
-        splat.launches = tile.launches = 0
+        splat.launches = tile.launches = resolve.launches = 0
         eng = Engine(cfg=None, settings=Settings(), device=dev)
         eng.open([path])
         t0 = time.perf_counter()
@@ -1198,7 +1373,8 @@ def main(argv=None) -> int:
             img, stats = eng.render(W, H)
             frame_ms.append((time.perf_counter() - t1) * 1e3)
         launches["bulk_exact"] = splat.launches
-        check(tile.launches == 0, "the default route launched the tile kernel")
+        check(tile.launches == resolve.launches == 0,
+              "the default route launched the tile kernel or splat_resolve")
         rep = eng.report()
         bulk_tree = {k: rep[k] for k in TREE}
 
@@ -1213,7 +1389,7 @@ def main(argv=None) -> int:
         cov3 = drawn_mask(img, C)     # phase 15's silhouette reference
         check(cover > 0.05, f"only {cover:.3%} of pixels drawn")
         check(launches["bulk_exact"] > 0,
-              "the frame did not go through the splat kernel")
+              "the frame did not go through the splat_samples kernel")
         per_step = load_syncs / max(rep["steps"], 1)
         say(f"load_all: {load_s:.2f} s = {n / load_s / 1e6:.2f} MP/s; "
             f"nodes {rep['num_nodes']}, voxels {rep['num_voxels']}, "
@@ -1224,7 +1400,7 @@ def main(argv=None) -> int:
             f"{float(np.median(frame_ms)):.2f} ms ({', '.join(f'{t:.2f}' for t in frame_ms)}); "
             f"visible points {stats.num_visible_points}, voxels "
             f"{stats.num_visible_voxels}; truncated {stats.render_truncated}; "
-            f"{cover:.1%} of pixels drawn; splat kernel launches "
+            f"{cover:.1%} of pixels drawn; splat_samples launches "
             f"{launches['bulk_exact']}; card: {card}")
         route_ms = {"exact 36M": route_pair(eng, img, "bulk_exact",
                                             tile_launches, card)}
@@ -1236,7 +1412,7 @@ def main(argv=None) -> int:
         eng.cfg = dataclasses.replace(eng.cfg, use_tile_raster=False)
 
         # --- phase 4: kernels against plain versions on this frame ---
-        rows, srows = {}, {}
+        rows, srows, xrows = {}, {}, {}
         for hqs in (True, False):
             eng.settings.use_high_quality_shading = hqs
             u = eng.uniforms(W, H)
@@ -1245,6 +1421,8 @@ def main(argv=None) -> int:
                 raster_tiles.pack_samples(eng.cfg, u, W, H, sets),
                 f"exact frame, hqs={hqs}", card)
             srows[("exact", hqs)] = splat_vs_plain(
+                eng.cfg, u, sets, f"exact frame, hqs={hqs}", card)
+            xrows[("exact", hqs)] = samples_vs_plain(
                 eng.cfg, u, sets, f"exact frame, hqs={hqs}", card)
         eng.settings.use_high_quality_shading = True
         eng.stream.stop()
@@ -1297,7 +1475,7 @@ def main(argv=None) -> int:
             f"max {max(frame_ms):.2f}; pool rebuilds {pool['count']} taking "
             f"{pool['count'] * pool['avg_ms'] / 1e3:.3f} s; host syncs "
             f"{rep['host_syncs']} = {rep['host_syncs'] / frames:.1f}/frame; "
-            f"splat kernel launches {launches['streamed_pooled']}; peak device "
+            f"splat_samples launches {launches['streamed_pooled']}; peak device "
             f"memory {peak / 2**30:.2f} GiB; last frame truncated "
             f"{stats.render_truncated}, {cover:.1%} of pixels drawn; tree "
             f"{tree} equals the bulk load's; card: {card}")
@@ -1321,13 +1499,16 @@ def main(argv=None) -> int:
                     img, stats = eng.render(W, H)
                     ms.append((time.perf_counter() - t1) * 1e3)
                 launches[key] += splat.launches
-                check(splat.launches >= 6, f"{key}: not through the splat kernel")
+                check(splat.launches >= 6, f"{key}: not through the splat_samples kernel")
                 check(coverage(img, C) > 0.05, f"{key}: too few pixels drawn")
                 post[budget] = (float(np.median(ms)), stats.render_truncated,
                                 stats.num_visible_points,
                                 stats.num_visible_voxels)
                 route_ms[f"{key[10:]} {view}"] = route_pair(
                     eng, img, key, tile_launches, card)
+                if view == "auto-focus":
+                    device_profile(lambda: eng.render(W, H),
+                                   f"post-load {key[10:]} 1080p frame", card)
             say(f"post-load 1920x1080, {view} view: pooled (point_budget 1.0) "
                 f"median {post[1.0][0]:.2f} ms, truncated {post[1.0][1]}, "
                 f"windows {eng.last_pooled_windows[:4]}; exact median "
@@ -1349,6 +1530,8 @@ def main(argv=None) -> int:
                 raster_tiles.pack_samples(eng.cfg, u, W, H, sets),
                 f"pooled frame, hqs={hqs}", card)
             srows[("pooled", hqs)] = splat_vs_plain(
+                eng.cfg, u, sets, f"pooled frame, hqs={hqs}", card)
+            xrows[("pooled", hqs)] = samples_vs_plain(
                 eng.cfg, u, sets, f"pooled frame, hqs={hqs}", card)
         eng.stream.stop()
         del eng
@@ -1379,7 +1562,7 @@ def main(argv=None) -> int:
               f"{rep['num_points_dropped']} != {n}")
         check(not rep["mem_capacity_reached"], "LAS: mem_capacity_reached")
         check(cover > 0.05, f"LAS: only {cover:.3%} of pixels drawn")
-        check(launches["las_bulk"] > 0, "LAS frames not through the splat kernel")
+        check(launches["las_bulk"] > 0, "LAS frames not through the splat_samples kernel")
         route_ms["LAS exact"] = route_pair(eng10, img, "las_bulk",
                                            tile_launches, card)
         say(f"LAS bulk load of {len(tile_sizes)} tiles: {load_s:.2f} s = "
@@ -1387,7 +1570,7 @@ def main(argv=None) -> int:
             f"{rep['stream']['t_decode']} s (summed over loader threads); host "
             f"syncs {load_syncs}; tree {las_tree}; 1920x1080 exact frame median "
             f"{las_ms:.2f} ms, truncated {stats.render_truncated}, {cover:.1%} "
-            f"of pixels drawn; splat kernel launches {launches['las_bulk']}; "
+            f"of pixels drawn; splat_samples launches {launches['las_bulk']}; "
             f"card: {card}")
         for hqs in (True, False):
             eng10.settings.use_high_quality_shading = hqs
@@ -1399,6 +1582,8 @@ def main(argv=None) -> int:
                     raster_tiles.pack_samples(eng10.cfg, u, W, H, sets),
                     "LAS exact frame, hqs=True", card)
             srows[("las", hqs)] = splat_vs_plain(
+                eng10.cfg, u, sets, f"LAS exact frame, hqs={hqs}", card)
+            xrows[("las", hqs)] = samples_vs_plain(
                 eng10.cfg, u, sets, f"LAS exact frame, hqs={hqs}", card)
         eng10.settings.use_high_quality_shading = True
 
@@ -1437,7 +1622,7 @@ def main(argv=None) -> int:
             f"{float(np.median(frame_ms)):.2f}, max {max(frame_ms):.2f}; "
             f"{n_dec} whole-file LAZ decodes (one per file) taking "
             f"{laz.decode_seconds - decode_s:.2f} s on the host CPU; host syncs "
-            f"{rep['host_syncs']}; splat kernel launches "
+            f"{rep['host_syncs']}; splat_samples launches "
             f"{launches['laz_streamed']}; tree {tree} equals the LAS bulk "
             f"load's; card: {card}")
         u = eng.uniforms(W, H)
@@ -1478,7 +1663,7 @@ def main(argv=None) -> int:
                 if boxes:
                     launches["overlay"] += splat.launches
                     check(splat.launches >= 6,
-                          "overlay frames not through the splat kernel")
+                          "overlay frames not through the splat_samples kernel")
                     route_ms[f"overlay {'pooled' if budget else 'exact'}"] = \
                         route_pair(eng10, img, "overlay", tile_launches, card)
                 overlay[(budget, boxes)] = (ms, img)
@@ -1587,13 +1772,16 @@ def main(argv=None) -> int:
             srows[("ooc", hqs)] = splat_vs_plain(
                 rcfg, u, sets, f"out-of-core paged brick frame, hqs={hqs}",
                 card)
+            xrows[("ooc", hqs)] = samples_vs_plain(
+                rcfg, u, sets, f"out-of-core paged brick frame, hqs={hqs}",
+                card)
         del ooc, st
         gc.collect()
         torch.cuda.empty_cache()
 
         # --- phases 14-16: the sharded engine on 4 shards of the card ---
         phase_small_sharded(tmp, dev)
-        phase_sharded_bulk(path, n, cov3, dev, card, launches, srows)
+        phase_sharded_bulk(path, n, cov3, dev, card, launches, srows, xrows)
         gc.collect()
         torch.cuda.empty_cache()
         phase_sharded_ooc(dirs["las"], n, dev, card, launches)
@@ -1606,17 +1794,35 @@ def main(argv=None) -> int:
     say("frame median ms, splat route vs tile route, interleaved: " + json.dumps(
         {k: [round(v[0], 2), round(v[1], 2)] for k, v in route_ms.items()}))
     ex, sx = rows[("exact", True)], srows[("exact", True)]
+    xx = xrows[("exact", True)]
     by_stream = lambda rs: {f"{k[0]} {'hqs' if k[1] else 'plain'}":
                             [round(v, 4) for v in r[1:4]]
                             for k, r in rs.items()}
+    say("splat_samples stage vs the previous design's (materialize + columns"
+        " + splat_resolve), ms, timed in turns: " + json.dumps(
+            {f"{k[0]} {'hqs' if k[1] else 'plain'}": [round(r[4], 4),
+                                                       round(r[5], 4)]
+             for k, r in xrows.items()}))
     say(json.dumps({"kernels": [{
-        "name": "splat_resolve", "route": "cuda",
+        "name": "splat_samples", "route": "cuda",
         "source": "simlod_tpu_torch/csrc/raster_splat.cu",
         "replaces": "simlod_tpu/render/raster_tiles.py:237",
         "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": max(r[0] for r in xrows.values()),
+        "ms": xx[1], "plain_ms": xx[2], "bound_ms": xx[3], "bound_by": "bytes",
+        "library_ms": None, "stage_ms": xx[5], "previous_stage_ms": xx[4],
+        "call_ms": xx[7],
+        "ms_plain_ms_bound_ms_by_stream": by_stream(xrows),
+    }, {
+        "name": "splat_resolve", "route": "cuda",
+        "source": "simlod_tpu_torch/csrc/raster_splat.cu",
+        "replaces": "simlod_tpu/render/raster_tiles.py:237",
+        # off the frame path since splat_samples: its comparisons above are
+        # not counted, so this is what the main paths launched
+        "launches": resolve.launches,
         "max_abs_err": max(r[0] for r in srows.values()),
         "ms": sx[1], "plain_ms": sx[2], "bound_ms": sx[3], "bound_by": "bytes",
-        "library_ms": None, "stage_ms": sx[4],
+        "library_ms": None, "stage_ms": sx[4], "device_ms": sx[6],
         "ms_plain_ms_bound_ms_by_stream": by_stream(srows),
     }, {
         "name": "tile_resolve", "route": "cuda",

@@ -113,5 +113,8 @@ def load() -> ctypes.CDLL:
             lib.simlod_tile_resolve.restype = i
             lib.simlod_splat_resolve.argtypes = [p, p, p, i, p, i, p, p, p, p, p]
             lib.simlod_splat_resolve.restype = i
+            lib.simlod_splat_samples.argtypes = [p, i, p, p, p, p, p, i, i, i,
+                                                 i, p, p, p, p, p]
+            lib.simlod_splat_samples.restype = i
             _lib = lib
         return _lib

@@ -6,6 +6,11 @@ package's: each segment lands in a window of `out_len` rows at the same phase
 that outgrows the window truncates exactly where the JAX package's does. The
 aligned-row DMA trick behind that layout was a TPU device; here the gather is a
 plain element gather through the plan's source indices.
+
+`plan_blocks` is the plan in its per-block form (WR = out_len / 128 entries),
+`expand` its element-wise form: block r of the window is one aligned 128-row
+run of the pool, so a kernel can read a block's rows straight from the pool
+columns (csrc/raster_splat.cu) without the window-sized tensors.
 """
 from __future__ import annotations
 
@@ -28,8 +33,23 @@ class RaggedPlan(NamedTuple):
     out_len: int
 
 
-def plan(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int) -> RaggedPlan:
-    """Gather plan for segments (src_off[i], cnt[i]). out_len % 128 == 0."""
+class BlockPlan(NamedTuple):
+    """A plan per 128-row window block r: its elements are pool rows
+    src_row[r] * 128 + l (l < 128), element (r, l) is valid iff r_ok[r] and
+    pstart_r[r] <= r * 128 + l < pend_r[r], and it belongs to segment sr[r]."""
+    src_row: torch.Tensor   # [WR] i32 pool row block
+    pstart_r: torch.Tensor  # [WR] i32 window position of the segment's start
+    pend_r: torch.Tensor    # [WR] i32 ... and of its end
+    r_ok: torch.Tensor      # [WR] bool
+    sr: torch.Tensor        # [WR] i32 segment id (clamped >= 0)
+    mpos: torch.Tensor      # [S] as RaggedPlan.mpos
+    out_len: int
+
+
+def plan_blocks(src_off: torch.Tensor, cnt: torch.Tensor,
+                out_len: int) -> BlockPlan:
+    """Per-block gather plan for segments (src_off[i], cnt[i]);
+    out_len % 128 == 0."""
     assert out_len % A == 0
     dev = src_off.device
     S = src_off.shape[0]
@@ -47,20 +67,35 @@ def plan(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int) -> RaggedPlan:
     # segment owning window row r: the first segment whose row range ends after r
     seg_of_r = torch.searchsorted(row_end, jr, right=True).to(torch.int32)
     r_ok = (jr < total_rows) & (seg_of_r < S)
-    sr = seg_of_r.clamp(max=max(S - 1, 0)).long()
-    src_row = row0[sr] + (jr - row_offs[sr])
-    pstart_r = row_offs[sr] * A + phase[sr]
-    pend_r = pstart_r + cnt[sr]
-    lanes = iota(A, dev)
-    j2 = jr[:, None] * A + lanes[None, :]
-    valid = r_ok[:, None] & (j2 >= pstart_r[:, None]) & (j2 < pend_r[:, None])
-    elem = j2 - pstart_r[:, None]
-    src = src_row.to(torch.int64)[:, None] * A + lanes[None, :]
-    seg_of = sr.to(torch.int32)[:, None].expand(WR, A)
+    sr = seg_of_r.clamp(max=max(S - 1, 0))
+    at = sr.long()
+    src_row = row0[at] + (jr - row_offs[at])
+    pstart_r = row_offs[at] * A + phase[at]
+    pend_r = pstart_r + cnt[at]
     mpos = torch.where(nz, row_offs * A + phase, out_len)
-    return RaggedPlan(src=src.reshape(out_len), seg_of=seg_of.reshape(out_len),
-                      elem=elem.reshape(out_len), valid=valid.reshape(out_len),
-                      mpos=mpos, out_len=out_len)
+    return BlockPlan(src_row=src_row, pstart_r=pstart_r, pend_r=pend_r,
+                     r_ok=r_ok, sr=sr, mpos=mpos, out_len=out_len)
+
+
+def expand(bp: BlockPlan) -> RaggedPlan:
+    """The element-wise plan of a block plan ([out_len] tensors)."""
+    WR, dev = bp.out_len // A, bp.src_row.device
+    lanes = iota(A, dev)
+    j2 = iota(WR, dev)[:, None] * A + lanes[None, :]
+    valid = bp.r_ok[:, None] & (j2 >= bp.pstart_r[:, None]) \
+        & (j2 < bp.pend_r[:, None])
+    elem = j2 - bp.pstart_r[:, None]
+    src = bp.src_row.to(torch.int64)[:, None] * A + lanes[None, :]
+    seg_of = bp.sr[:, None].expand(WR, A)
+    n = bp.out_len
+    return RaggedPlan(src=src.reshape(n), seg_of=seg_of.reshape(n),
+                      elem=elem.reshape(n), valid=valid.reshape(n),
+                      mpos=bp.mpos, out_len=n)
+
+
+def plan(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int) -> RaggedPlan:
+    """Gather plan for segments (src_off[i], cnt[i]). out_len % 128 == 0."""
+    return expand(plan_blocks(src_off, cnt, out_len))
 
 
 def gather_column(p: RaggedPlan, src: torch.Tensor) -> torch.Tensor:

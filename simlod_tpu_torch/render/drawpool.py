@@ -24,7 +24,7 @@ import torch
 
 from ..config import EngineConfig
 from ..octree.structures import OctreeState
-from ..ops import morton, ragged
+from ..ops import ragged
 from ..ops.segments import I32_MAX, iota, pack2
 from . import raster
 
@@ -212,55 +212,27 @@ def _pool_take(mask, stored_cnt, budgets):
 
 
 def _prefix_plan(off, cnt, take, window: int):
-    """Plan of each node's first `take` pooled rows in a window of
-    (window // 128) * 128 rows; returns (plan, take clamped to the pool)."""
+    """Block plan of each node's first `take` pooled rows in a window of
+    (window // 128) * 128 rows; returns (plan, samples in the window)."""
     N = off.shape[0]
     take = torch.minimum(take[:N], cnt)
     W = (window // 128) * 128
-    return ragged.plan(torch.where(take > 0, off, 0), take, W), take
+    return (ragged.plan_blocks(torch.where(take > 0, off, 0), take, W),
+            torch.clamp(take.sum(dtype=torch.int32), max=W))
 
 
 def gather_pool_points(cfg: EngineConfig, state: OctreeState, pool: DrawPool,
                        take: torch.Tensor, window: int):
-    """Budgeted prefix gather of pooled leaf points -> raster.Samples (hash
+    """Budgeted prefix of pooled leaf points -> raster.SampleSource (hash
     order makes each prefix a deterministic uniform subsample)."""
-    p, take = _prefix_plan(pool.pt_off, pool.pt_cnt, take, window)
-    qx, qy, qz = morton.decode(ragged.gather_column(p, pool.p_w0),
-                               ragged.gather_column(p, pool.p_w1),
-                               ragged.gather_column(p, pool.p_w2))
-    x, y, z = morton.dequantize_cols(qx, qy, qz, state.box_min, state.cube_size)
-    rgba = ragged.gather_column(p, pool.p_rgba)
-    N = pool.pt_off.shape[0]
-
-    def node_fn():
-        return torch.where(p.valid, ragged.broadcast_i32(p, iota(N, x.device)),
-                           0)
-
-    def level_fn():
-        return state.level[node_fn().long()]
-
-    return raster.Samples(x=x, y=y, z=z, rgba=rgba, node_fn=node_fn,
-                          level_fn=level_fn, valid=p.valid,
-                          count=torch.clamp(take.sum(dtype=torch.int32),
-                                            max=p.out_len))
+    p, count = _prefix_plan(pool.pt_off, pool.pt_cnt, take, window)
+    return raster.point_source(state, p, pool.p_w0, pool.p_w1, pool.p_w2,
+                               pool.p_rgba, None, count)
 
 
 def gather_pool_voxels(cfg: EngineConfig, state: OctreeState, pool: DrawPool,
                        take: torch.Tensor, window: int):
-    """Budgeted prefix gather of pooled inner-node voxels -> raster.Samples."""
-    p, take = _prefix_plan(pool.vx_off, pool.vx_cnt, take, window)
-    k0 = ragged.gather_column(p, pool.v_k0)
-    k1 = ragged.gather_column(p, pool.v_k1)
-    k2l = ragged.gather_column(p, pool.v_k2l)
-    rgba = ragged.gather_column(p, pool.v_rgba)
-    x, y, z, lvl = raster.voxel_positions_from_keys(state, k0, k1, k2l)
-    N = pool.vx_off.shape[0]
-
-    def node_fn():
-        return torch.where(p.valid, ragged.broadcast_i32(p, iota(N, x.device)),
-                           0)
-
-    return raster.Samples(x=x, y=y, z=z, rgba=rgba, node_fn=node_fn,
-                          level_fn=lambda: lvl, valid=p.valid,
-                          count=torch.clamp(take.sum(dtype=torch.int32),
-                                            max=p.out_len))
+    """Budgeted prefix of pooled inner-node voxels -> raster.SampleSource."""
+    p, count = _prefix_plan(pool.vx_off, pool.vx_cnt, take, window)
+    return raster.voxel_source(state, p, pool.v_k0, pool.v_k1, pool.v_k2l,
+                               pool.v_rgba, count)

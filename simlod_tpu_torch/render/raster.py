@@ -1,14 +1,20 @@
 """Software point/voxel rasterization (port of simlod_tpu/render/raster.py).
 
-Sample gathering (ragged segment / voxel-CSR expansion), projection into one
-(pixel, depth bits, colour) row per splat (`splat_columns`), and the drawing
-stage of the reference (render.cu:95-99, 487-493): a u64 atomicMin of
-(depth bits << 32 | colour) per pixel, then either an HQS accumulate (depth <
-closest*1.01) or the plain winner's colour. On CUDA tensors that stage is the
-hand-written kernel csrc/raster_splat.cu (`splat_resolve`); on CPU tensors it
-is its plain PyTorch version `splat_resolve_reference` (scatter-mins and an
-index_add). Frames go through `rasterize` unless `use_tile_raster` sends them
-to render/raster_tiles.py.
+A frame's sample sets are `SampleSource`s: the block plan of a ragged gather
+(ragged.plan_blocks) over the octree's or the draw pool's columns, not yet
+gathered. `rasterize` draws them as the reference's kernel_render does
+(render.cu:95-99, 487-493): decode and project each sample, a u64 atomicMin
+of (depth bits << 32 | colour) per pixel, then either an HQS accumulate
+(depth < closest*1.01) or the plain winner's colour. On CUDA tensors that is
+one hand-written kernel, csrc/raster_splat.cu (`splat_samples`), which reads
+the sources where they lie; on CPU tensors it is its plain PyTorch version
+`splat_samples_reference`: `materialize` (the gathers, Morton decode and
+positions, as column-form `Samples`), `splat_columns` (projection into one
+(pixel, depth bits, colour) row per splat) and `splat_resolve_reference`
+(scatter-mins and an index_add). `splat_resolve` is the previous design's
+CUDA kernel over those columns, kept as the yardstick of the stage. Frames go
+through `rasterize` unless `use_tile_raster` sends them to
+render/raster_tiles.py.
 
 Colours and packed words are int32 bit patterns (torch has no uint32 `>>` or
 scatter-min): unsigned order is signed order after flipping the sign bit.
@@ -16,6 +22,7 @@ Pixel layout is flat row-major pixel = x + width*y, like the reference.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -46,10 +53,46 @@ class Samples(NamedTuple):
     count: torch.Tensor   # i32
 
 
+POINTS, VOXELS = 0, 1
+
+
+class SampleSource(NamedTuple):
+    """One sample set where it lies: the block plan of its ragged gather over
+    pool columns, and what decoding and the debug colour modes read. Points
+    carry Morton words (c0, c1, c2 = w0, w1, w2), voxels global prefix keys
+    (k0, k1, k2l); a sample's node is seg_node[segment], or the segment id
+    itself where seg_node is None (per-node CSR directories)."""
+    kind: int                        # POINTS or VOXELS
+    plan: ragged.BlockPlan
+    c0: torch.Tensor                 # [P] i32 pool columns
+    c1: torch.Tensor
+    c2: torch.Tensor
+    rgba: torch.Tensor               # [P] i32 (u32 bit pattern)
+    seg_node: torch.Tensor | None    # [S] i32
+    level: torch.Tensor              # [N] i32 node levels (points' LOD colour)
+    box_min: torch.Tensor            # [3] f32
+    cube_size: torch.Tensor          # f32
+    show: torch.Tensor | None        # bool: the frame's show_points (None: on)
+    count: torch.Tensor              # i32 samples in the window
+
+
+def point_source(state: OctreeState, plan: ragged.BlockPlan, w0, w1, w2, rgba,
+                 seg_node, count) -> SampleSource:
+    return SampleSource(POINTS, plan, w0, w1, w2, rgba, seg_node, state.level,
+                        state.box_min, state.cube_size, None, count)
+
+
+def voxel_source(state: OctreeState, plan: ragged.BlockPlan, k0, k1, k2l,
+                 rgba, count) -> SampleSource:
+    return SampleSource(VOXELS, plan, k0, k1, k2l, rgba, None, state.level,
+                        state.box_min, state.cube_size, None, count)
+
+
 def gather_point_samples(cfg: EngineConfig, state: OctreeState,
                          emitted: torch.Tensor,
-                         window: int | None = None) -> Samples:
-    """Expand the live segments of emitted nodes into a dense sample window."""
+                         window: int | None = None) -> SampleSource:
+    """The live segments of emitted nodes, planned into a dense sample
+    window."""
     n_cap = state.child_base.shape[0]
     sn = state.seg_node
     ok = (state.seg_cnt > 0) & (sn >= 0) & emitted[sn.clamp(0, n_cap - 1).long()]
@@ -57,25 +100,12 @@ def gather_point_samples(cfg: EngineConfig, state: OctreeState,
     counts = torch.where(ok, state.seg_cnt, zero)
     offs = torch.where(ok, state.seg_off, zero)
     W = ((window or cfg.max_render_points) // 128) * 128
-    p = ragged.plan(offs, counts, W)
-    qx, qy, qz = morton.decode(ragged.gather_column(p, state.pt_w0),
-                               ragged.gather_column(p, state.pt_w1),
-                               ragged.gather_column(p, state.pt_w2))
-    x, y, z = morton.dequantize_cols(qx, qy, qz, state.box_min, state.cube_size)
-    rgba = ragged.gather_column(p, state.pt_rgba)
-
-    def node_fn():
-        return torch.where(p.valid, ragged.broadcast_i32(p, sn), zero)
-
-    def level_fn():
-        return state.level[node_fn().long()]
-
-    return Samples(x=x, y=y, z=z, rgba=rgba, node_fn=node_fn, level_fn=level_fn,
-                   valid=p.valid,
-                   count=torch.clamp(counts.sum(dtype=torch.int32), max=W))
+    return point_source(state, ragged.plan_blocks(offs, counts, W),
+                        state.pt_w0, state.pt_w1, state.pt_w2, state.pt_rgba,
+                        sn, torch.clamp(counts.sum(dtype=torch.int32), max=W))
 
 
-def voxel_positions_from_keys(state: OctreeState, k0, k1, k2l):
+def voxel_positions_from_keys(box_min, cube_size, k0, k1, k2l):
     """Voxel cell-center world positions from global prefix keys; float op order
     matches the reference (sampleVoxel voxels.cu:103-115). Returns (x, y, z,
     level)."""
@@ -85,41 +115,60 @@ def voxel_positions_from_keys(state: OctreeState, k0, k1, k2l):
     px, py, pz = qx >> shift, qy >> shift, qz >> shift
     m = C.GRID_SIZE - 1
     f32 = torch.float32
-    size = state.cube_size / torch.exp2(lvl.to(f32))
+    size = cube_size / torch.exp2(lvl.to(f32))
     g = float(C.GRID_SIZE)
     x = ((px >> C.GRID_BITS).to(f32) * size
-         + state.box_min[0]) + size * (((px & m).to(f32) + 0.5) / g)
+         + box_min[0]) + size * (((px & m).to(f32) + 0.5) / g)
     y = ((py >> C.GRID_BITS).to(f32) * size
-         + state.box_min[1]) + size * (((py & m).to(f32) + 0.5) / g)
+         + box_min[1]) + size * (((py & m).to(f32) + 0.5) / g)
     z = ((pz >> C.GRID_BITS).to(f32) * size
-         + state.box_min[2]) + size * (((pz & m).to(f32) + 0.5) / g)
+         + box_min[2]) + size * (((pz & m).to(f32) + 0.5) / g)
     return x, y, z, lvl
 
 
 def gather_voxel_samples(cfg: EngineConfig, state: OctreeState,
                          emitted: torch.Tensor,
-                         window: int | None = None) -> Samples:
-    """Expand emitted nodes' voxel ranges (compacted CSR); positions are the
-    cell centers decoded from the global prefix keys."""
+                         window: int | None = None) -> SampleSource:
+    """Emitted nodes' voxel ranges (compacted CSR), planned into a dense
+    sample window; positions are the cell centers of the global prefix
+    keys."""
     zero = torch.zeros((), dtype=torch.int32, device=emitted.device)
     counts = torch.where(emitted, state.vox_vcnt, zero)
     offs = torch.where(emitted, state.vox_voff, zero)
     W = ((window or cfg.max_render_voxels) // 128) * 128
-    p = ragged.plan(offs, counts, W)
-    k0 = ragged.gather_column(p, state.vox_k0)
-    k1 = ragged.gather_column(p, state.vox_k1)
-    k2l = ragged.gather_column(p, state.vox_k2l)
-    rgba = ragged.gather_column(p, state.vox_rgba)
-    x, y, z, lvl = voxel_positions_from_keys(state, k0, k1, k2l)
+    return voxel_source(state, ragged.plan_blocks(offs, counts, W),
+                        state.vox_k0, state.vox_k1, state.vox_k2l,
+                        state.vox_rgba,
+                        torch.clamp(counts.sum(dtype=torch.int32), max=W))
+
+
+def materialize(s) -> Samples:
+    """A source gathered into column-form Samples (Samples pass through):
+    the plain version of what the splat kernel reads in registers."""
+    if isinstance(s, Samples):
+        return s
+    p = ragged.expand(s.plan)
+    c0, c1, c2, rgba = (ragged.gather_column(p, c)
+                        for c in (s.c0, s.c1, s.c2, s.rgba))
+    if s.kind == POINTS:
+        x, y, z = morton.dequantize_cols(*morton.decode(c0, c1, c2),
+                                         s.box_min, s.cube_size)
+    else:
+        x, y, z, lvl = voxel_positions_from_keys(s.box_min, s.cube_size,
+                                                 c0, c1, c2)
+    zero = torch.zeros((), dtype=torch.int32, device=rgba.device)
 
     def node_fn():
-        ids = torch.arange(counts.shape[0], dtype=torch.int32,
-                           device=counts.device)
-        return torch.where(p.valid, ragged.broadcast_i32(p, ids), zero)
+        node = p.seg_of if s.seg_node is None \
+            else ragged.broadcast_i32(p, s.seg_node)
+        return torch.where(p.valid, node, zero)
 
+    def level_fn():
+        return s.level[node_fn().long()] if s.kind == POINTS else lvl
+
+    valid = p.valid if s.show is None else p.valid & s.show
     return Samples(x=x, y=y, z=z, rgba=rgba, node_fn=node_fn,
-                   level_fn=lambda: lvl, valid=p.valid,
-                   count=torch.clamp(counts.sum(dtype=torch.int32), max=W))
+                   level_fn=level_fn, valid=valid, count=s.count)
 
 
 def _lod_color(level: torch.Tensor) -> torch.Tensor:
@@ -186,9 +235,9 @@ def splat_columns(cfg: EngineConfig, uniforms: Uniforms, width: int,
 
     Returns (pix, dbits, color), int32 [S] each, S = rows of all sets times
     max_point_size^2; a row that draws nothing has pix == `unused` and +inf
-    depth bits."""
+    depth bits. Sources are materialized first."""
     pixs, dbits, colors = [], [], []
-    for s in sample_sets:
+    for s in map(materialize, sample_sets):
         x, y, d, ok = _project(s, uniforms)
         db = d.view(torch.int32)
         col = _sample_colors(s, uniforms)
@@ -291,19 +340,139 @@ def splat_resolve(pix: torch.Tensor, dbits: torch.Tensor, color: torch.Tensor,
 splat_resolve.launches = 0
 
 
-def rasterize(cfg: EngineConfig, uniforms: Uniforms, width: int, height: int,
-              sample_sets: list[Samples]):
-    """The drawing stage over one or more sample sets: the splat kernel for
-    CUDA tensors, its plain version for CPU tensors.
-
-    Returns (color i32 [H*W] (u32 bits), depth_bits i32 [H*W]) with background
-    where uncovered (clear values per render.cu:1126-1131)."""
+def splat_samples_reference(cfg: EngineConfig, uniforms: Uniforms, width: int,
+                            height: int, sample_sets):
+    """Plain PyTorch version of the splat_samples kernel: materialize +
+    splat_columns + splat_resolve_reference (sources or Samples)."""
     npx = width * height
     pix, dbits, color = splat_columns(cfg, uniforms, width, height,
                                       sample_sets, npx)
     mode = uniforms.use_high_quality_shading.to(torch.int32).reshape(1)
-    resolve = splat_resolve if pix.is_cuda else splat_resolve_reference
-    return resolve(pix, dbits, color, mode, npx)
+    return splat_resolve_reference(pix, dbits, color, mode, npx)
+
+
+# SampleSource fields -> the kernel's per-set descriptor (csrc/raster_splat.cu
+# `SetDesc`: three int64 then fifteen pointers, in this order)
+_PLAN_FIELDS = (("src_row", torch.int32), ("pstart_r", torch.int32),
+                ("pend_r", torch.int32), ("r_ok", torch.bool),
+                ("sr", torch.int32))
+MAX_SETS = 8
+# Uniforms.flags colour modes -> the kernel's colour_mode bits
+COLOR_BY_NODE, COLOR_BY_LOD, COLOR_WHITE = 1, 2, 4
+
+
+def _checked(t: torch.Tensor, what: str, dtype, dev, shape=None) -> int:
+    if not t.is_cuda:
+        raise ValueError(f"splat_samples: {what} is on {t.device}; the kernel "
+                         "takes CUDA tensors (splat_samples_reference is the "
+                         "plain version)")
+    if t.device != dev:
+        raise ValueError(f"splat_samples: {what} is on {t.device}, not {dev}")
+    if t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"splat_samples: {what} must be contiguous {dtype}")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"splat_samples: {what} must have shape {shape}")
+    return t.data_ptr()
+
+
+def splat_samples(cfg: EngineConfig, uniforms: Uniforms, width: int,
+                  height: int, sources):
+    """The CUDA kernel csrc/raster_splat.cu (`simlod_splat_samples`) on
+    SampleSources of CUDA tensors; raises for anything else. Same arguments
+    and result as splat_samples_reference, bit for bit.
+
+    It replaces the sort, the prepass and the tile resolve of the JAX
+    package's TPU path (the Pallas kernel at simlod_tpu/render/raster_tiles.py
+    :237) and the port's gather -> Morton decode -> projection -> columns ->
+    splat_resolve chain: one walk over the 128-row blocks of every set's
+    plan reads each sample's 16 B where it lies, decodes, projects and
+    splats it in registers (the reference's kernel_render). Bound by memory:
+    16 B per drawn row (read twice with HQS), the plan, 8 B per pixel.
+    Each call adds one to `splat_samples.launches`."""
+    if not sources or len(sources) > MAX_SETS:
+        raise ValueError(f"splat_samples: 1 to {MAX_SETS} sample sets")
+    if not all(isinstance(s, SampleSource) for s in sources):
+        raise ValueError("splat_samples: the kernel takes SampleSource sets "
+                         "(column-form Samples go to splat_samples_reference "
+                         "or splat_columns + splat_resolve)")
+    dev = sources[0].c0.device
+    npx = width * height
+    if not 0 < npx < (1 << 31):
+        raise ValueError("splat_samples: width * height must be an int32 > 0")
+    i32, f32 = torch.int32, torch.float32
+    scales = {}
+    desc = []
+    for k, s in enumerate(sources):
+        name = f"set {k}"
+        pool = s.c0.shape[0]
+        cols = [_checked(c, f"{name} column {i}", i32, dev, (pool,))
+                for i, c in enumerate((s.c0, s.c1, s.c2, s.rgba))]
+        WR = s.plan.out_len // 128
+        plan = [_checked(getattr(s.plan, f), f"{name} plan.{f}", dt, dev, (WR,))
+                for f, dt in _PLAN_FIELDS]
+        seg = 0 if s.seg_node is None else _checked(
+            s.seg_node, f"{name} seg_node", i32, dev)
+        show = 0 if s.show is None else _checked(s.show, f"{name} show",
+                                                 torch.bool, dev, ())
+        key = (s.cube_size.data_ptr(), s.kind)
+        if key not in scales:
+            # the plain version's own expressions (dequantize_cols,
+            # voxel_positions_from_keys), evaluated once by torch
+            _checked(s.cube_size, f"{name} cube_size", f32, dev, ())
+            scales[key] = (s.cube_size.to(f32) / float(1 << C.FULL_GRID_BITS)
+                           if s.kind == POINTS else s.cube_size / torch.exp2(
+                               torch.arange(32, dtype=f32, device=dev)))
+        scale = scales[key]
+        desc += [s.kind, WR, pool, *plan, *cols, seg,
+                 _checked(s.level, f"{name} level", i32, dev),
+                 show, _checked(s.box_min, f"{name} box_min", f32, dev, (3,)),
+                 scale.data_ptr() if s.kind == POINTS else 0,
+                 scale.data_ptr() if s.kind == VOXELS else 0]
+    u = uniforms
+    flags = u.flags
+    mode = (COLOR_BY_NODE * flags.color_by_node
+            | COLOR_BY_LOD * flags.color_by_lod | COLOR_WHITE * flags.color_white)
+    uni = [_checked(u.transform, "transform", f32, dev, (4, 4)),
+           _checked(u.width, "width", f32, dev, ()),
+           _checked(u.height, "height", f32, dev, ()),
+           _checked(u.point_size, "point_size", i32, dev, ()),
+           _checked(u.use_high_quality_shading, "use_high_quality_shading",
+                    torch.bool, dev, ())]
+    lib = kernels.load()
+    fb = torch.empty(npx, dtype=torch.int64, device=dev)
+    acc = torch.empty(2 * npx, dtype=torch.int64, device=dev)
+    out = torch.empty(npx, dtype=i32, device=dev)
+    depth = torch.empty_like(out)
+    table = (ctypes.c_int64 * len(desc))(*desc)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.simlod_splat_samples(
+            table, len(sources), *uni, width, height, cfg.max_point_size, mode,
+            fb.data_ptr(), acc.data_ptr(), out.data_ptr(), depth.data_ptr(),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"splat_samples: kernel launch failed (cudaError {rc})")
+    splat_samples.launches += 1
+    return out, depth
+
+
+splat_samples.launches = 0
+
+
+def _device(s) -> torch.device:
+    return (s.x if isinstance(s, Samples) else s.c0).device
+
+
+def rasterize(cfg: EngineConfig, uniforms: Uniforms, width: int, height: int,
+              sample_sets):
+    """The drawing stage over one or more sample sets: the splat_samples
+    kernel for CUDA tensors, its plain version for CPU tensors.
+
+    Returns (color i32 [H*W] (u32 bits), depth_bits i32 [H*W]) with background
+    where uncovered (clear values per render.cu:1126-1131)."""
+    draw = splat_samples if _device(sample_sets[0]).type == "cuda" \
+        else splat_samples_reference
+    return draw(cfg, uniforms, width, height, sample_sets)
 
 
 def edl(color: torch.Tensor, depth_bits: torch.Tensor, uniforms: Uniforms,

@@ -4,8 +4,8 @@ Taken with `EngineConfig(use_tile_raster=True)`; frames go through
 render/raster.py's splat kernel by default, as the JAX package takes its tile
 path only on a TPU (simlod_tpu/render/render.py:89).
 
-  1. project all samples -> (pixel, depth bits, colour)
-     (raster.splat_columns)                                               [torch]
+  1. materialize the sample sources and project all samples -> (pixel,
+     depth bits, colour) (raster.splat_columns)                           [torch]
   2. sort by (pixel, depth bits[, colour]): each pixel's samples form one run whose
      first row is the reference's u64 atomicMin winner (min depth, then min
      colour: render.cu:95-99)                                             [torch]
@@ -46,9 +46,9 @@ def pack_samples(cfg: EngineConfig, uniforms: Uniforms, width: int, height: int,
     n_tiles = (npx + TILE - 1) // TILE
     npad = n_tiles * TILE
     assert npad < (1 << WIN_BIT), (width, height)
-    dev = sample_sets[0].x.device
     pix, db, col = raster.splat_columns(cfg, uniforms, width, height,
                                         sample_sets, npad)
+    dev = pix.device
 
     # pixel (28 bits) and depth bits (31: positive floats and +inf) pack into one
     # int64 key; the exact tiebreak sorts by colour first (unsigned order = signed

@@ -51,8 +51,8 @@ def frame_samples(cfg: EngineConfig, state: OctreeState, uniforms: Uniforms,
                   voxel_window: int | None = None,
                   node_window: int | None = None,
                   seg_window: int | None = None):
-    """LOD selection and sample gathering of one frame -> (vis, [points, voxels],
-    directory-window overflow flag)."""
+    """LOD selection and the sample sources of one frame -> (vis, [points,
+    voxels], directory-window overflow flag)."""
     over = torch.zeros((), dtype=torch.bool, device=state.device)
     if node_window is not None:
         over = over | (state.num_nodes > node_window)
@@ -63,19 +63,18 @@ def frame_samples(cfg: EngineConfig, state: OctreeState, uniforms: Uniforms,
     pts = raster.gather_point_samples(cfg, state, vis.emitted, point_window)
     vox = raster.gather_voxel_samples(cfg, state, vis.emitted, voxel_window)
     # honour showPoints: drop both sample sets (render.cu:214)
-    pts = pts._replace(valid=pts.valid & uniforms.show_points)
-    vox = vox._replace(valid=vox.valid & uniforms.show_points)
-    return vis, [pts, vox], over
+    return vis, [s._replace(show=uniforms.show_points) for s in (pts, vox)], \
+        over
 
 
 def _rasterize(cfg: EngineConfig, uniforms: Uniforms, width: int, height: int,
                sets, state: OctreeState, emitted: torch.Tensor):
     """Draw the sample sets, then (with show_bounding_box) the emitted nodes'
     boxes and the frozen-camera frustum over them. cfg.use_tile_raster is the
-    only switch: by default the samples go through raster.rasterize (on the
-    card the CUDA splat kernel), with it through raster_tiles (the sort and
-    the CUDA tile kernel). On CPU tensors each uses its kernel's plain
-    version."""
+    only switch: by default the sample sources go through raster.rasterize
+    (on the card the CUDA splat_samples kernel), with it through raster_tiles
+    (materialized, sorted, then the CUDA tile kernel). On CPU tensors each
+    uses its kernel's plain version."""
     if cfg.use_tile_raster:
         color, depth = raster_tiles.rasterize_tiles(cfg, uniforms, width,
                                                     height, sets)
@@ -193,8 +192,7 @@ def pooled_frame_samples(cfg: EngineConfig, state: OctreeState,
         pool_vw)
     ep = raster.gather_point_samples(cfg, state, m_ep, exact_pw)
     ev = raster.gather_voxel_samples(cfg, state, m_ev, exact_vw)
-    sets = [s._replace(valid=s.valid & uniforms.show_points)
-            for s in (pp, pv, ep, ev)]
+    sets = [s._replace(show=uniforms.show_points) for s in (pp, pv, ep, ev)]
     # any sample set reaching its window dropped drawn samples (>=, where the
     # exact path's test is >: the JAX package's two tests)
     trunc = (pp.count >= pool_pw) | (pv.count >= pool_vw) \

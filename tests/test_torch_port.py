@@ -1,6 +1,6 @@
 """Properties of the port itself: it never imports jax, its kernel wrappers have
-no CPU fallback, and (on a card, marker `cuda`) the CUDA tile and splat kernels
-are bit-equal to their plain PyTorch versions. On a machine with a card, run the card
+no CPU fallback, and (on a card, marker `cuda`) the CUDA tile, splat and
+splat_samples kernels are bit-equal to their plain PyTorch versions. On a machine with a card, run the card
 tests with `python -m pytest tests/test_torch_port.py -m cuda`;
 chip_smoke.py runs the same comparison at the main path's shapes."""
 import os
@@ -256,3 +256,80 @@ def test_splat_kernel_matches_plain_version(hqs):
     assert raster.splat_resolve.launches == before + 1
     assert torch.equal(kc, rc) and torch.equal(kd, rd)
     assert (kc != C.BACKGROUND_COLOR).float().mean() > 0.05
+
+
+# name: (Settings overrides, max_point_size, pooled, sample window or None
+# for the engine's own windows); tests/test_torch_draw.py holds the plain
+# version to the JAX package in the same cases
+DRAW_CASES = {
+    "exact": ({}, 1, False, None),
+    "pooled": (dict(point_budget=1.0), 1, True, None),
+    "point_size_2": (dict(point_size=2), 2, False, None),
+    "pooled_point_size_2": (dict(point_budget=1.0, point_size=2), 2, True,
+                            None),
+    "color_by_node": (dict(color_by_node=True), 1, False, None),
+    "color_by_lod": (dict(color_by_lod=True), 1, False, None),
+    "pooled_color_by_lod": (dict(point_budget=1.0, color_by_lod=True), 1,
+                            True, None),
+    "color_white": (dict(color_white=True), 1, False, None),
+    "show_points_off": (dict(show_points=False), 1, False, None),
+    "truncating": ({}, 1, False, 128 * 40),
+}
+
+
+@pytest.fixture(scope="module")
+def card_engine(tmp_path_factory):
+    """A 60k-point terrain loaded by Engine on the card (the golden fixture's
+    config, max_point_size 2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    from simlod_tpu_torch.formats import simlod, synthetic
+    xyz, rgba = synthetic.terrain(60_000, seed=23, extent=1.0, z_scale=0.4)
+    path = str(tmp_path_factory.mktemp("draw") / "terrain.simlod")
+    simlod.write(path, xyz, rgba)
+    cfg = EngineConfig(
+        candidate_factor=21, cand_multi_rows=1 << 13, node_capacity=1 << 12,
+        point_capacity=1 << 17, voxel_capacity=1 << 19,
+        segment_capacity=1 << 14, step_points=1 << 13, spill_capacity=1 << 13,
+        max_splits_per_round=64, seg_select_cap=1 << 10,
+        max_points_per_node=256, max_render_points=1 << 17,
+        max_render_voxels=1 << 17, max_point_size=2)
+    eng = Engine(cfg, Settings(min_node_size=8.0), device="cuda")
+    eng.open([path])
+    eng.load_all()
+    eng.orbit.yaw, eng.orbit.pitch = 0.3, -0.6
+    eng.camera.world = eng.orbit.world()
+    yield eng
+    eng.stream.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hqs", [True, False])
+@pytest.mark.parametrize("case", list(DRAW_CASES))
+def test_splat_samples_matches_plain_version(card_engine, case, hqs):
+    import dataclasses
+    from simlod_tpu_torch.render.render import (frame_samples,
+                                                pooled_frame_samples)
+    eng = card_engine
+    settings, mps, pooled, win = DRAW_CASES[case]
+    eng.settings = Settings(min_node_size=8.0, use_high_quality_shading=hqs,
+                            **settings)
+    W, H = 160, 120
+    eng.render(W, H)        # builds the pool, sizes the windows
+    u = eng.uniforms(W, H)
+    cfg = dataclasses.replace(eng.cfg, max_point_size=mps)
+    if pooled:
+        _, sets, _ = pooled_frame_samples(cfg, eng.state, eng._draw_pool, u,
+                                          *eng.last_pooled_windows)
+        assert len(sets) == 4
+    else:
+        wins = (win, win) if win else eng.last_windows
+        _, sets, _ = frame_samples(cfg, eng.state, u, *wins)
+    before = raster.splat_samples.launches
+    kc, kd = raster.splat_samples(cfg, u, W, H, sets)
+    rc, rd = raster.splat_samples_reference(cfg, u, W, H, sets)
+    torch.cuda.synchronize()
+    assert raster.splat_samples.launches == before + 1
+    assert torch.equal(kd, rd) and torch.equal(kc, rc)
+    drawn = (kd != C.DEPTH_INF_BITS).float().mean()
+    assert drawn == 0 if case == "show_points_off" else drawn > 0.01

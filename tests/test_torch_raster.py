@@ -109,7 +109,7 @@ def test_visibility_and_gather(states, yaw, pitch):
     for jg, tg in ((jr.gather_point_samples, tr.gather_point_samples),
                    (jr.gather_voxel_samples, tr.gather_voxel_samples)):
         js_, ts_ = (jg(JCfg(**KW), js, a.emitted),
-                    tg(TCfg(**KW), ts, b.emitted))
+                    tr.materialize(tg(TCfg(**KW), ts, b.emitted)))
         v = np.asarray(js_.valid)
         np.testing.assert_array_equal(v, ts_.valid.numpy())
         for f in ("x", "y", "z", "rgba"):
