@@ -97,12 +97,17 @@ Phases (every one must pass; a failure raises and exits non-zero):
      an exact, a pooled and a streamed 1080p frame counted and held equal to
      the engine's host_syncs.
 Phases 10, 13 and 15 hold splat_samples and splat_resolve to their plain
-versions on their frames' sample sets as phase 4 does. Every kernel launch
-counter is zeroed just before each main path (phases 3, 6, 7, 10, 11, 12, 13,
-15, 16 and the app and viewer runs of 17) and read just after: splat_samples
-must have run on every one, the tile kernel on the tile-route frames of
-phases 3, 7, 10, 12 and 13; splat_resolve, off the frame path, on none
-(launches made to compare a kernel with its plain version are not counted).
+versions on their frames' sample sets as phase 4 does. The frame kernels of
+csrc/frame.cu (visibility, plan_blocks, edl) are held to their plain
+versions, bit for bit, on the frames of phases 4 (exact), 8 (pooled), 10
+(LAS), 13 (paged brick) and 15 (shard 0), edl also on the composites of
+phases 13 and 15, and timed there. Every kernel launch counter is zeroed
+just before each main path (phases 3, 6, 7, 10, 11, 12, 13, 15, 16 and the
+app and viewer runs of 17) and read just after: splat_samples and the three
+frame kernels must have run on every one, the tile kernel on the tile-route
+frames of phases 3, 7, 10, 12 and 13; splat_resolve, off the frame path, on
+none (launches made to compare a kernel with its plain version are not
+counted).
 Phases 15-16 run 4 shards on one card: they show the sharded path works
 there, not how it scales over cards.
 
@@ -717,17 +722,206 @@ def interleaved_ms(fns, reps: int = 10, rounds: int = 4) -> list:
 
 
 class uncounted:
-    """Keeps the launch counters of the splat kernels as they were: launches
-    made to compare a kernel with its plain version are not the path's."""
+    """Keeps the launch counters of the kernels as they were: launches made
+    to compare a kernel with its plain version are not the path's."""
 
     def __enter__(self):
         from simlod_tpu_torch.render import raster
-        self.saved = [(f, f.launches) for f in (raster.splat_samples,
-                                                raster.splat_resolve)]
+        self.saved = [(f, f.launches) for f in (
+            raster.splat_samples, raster.splat_resolve,
+            *frame_kernels().values())]
 
     def __exit__(self, *exc):
         for f, n in self.saved:
             f.launches = n
+
+
+# the JAX functions the frame kernels replace (XLA fuses them in the jitted
+# frame)
+REPLACES = {"visibility": "simlod_tpu/render/visibility.py:42",
+            "plan_blocks": "simlod_tpu/ops/ragged.py:46",
+            "edl": "simlod_tpu/render/raster.py:259"}
+
+
+def frame_kernel_entry(name: str, fk_rows: dict) -> dict:
+    """A frame kernel's entry of the kernels line: the exact frame's
+    numbers (phase 4), every compared frame's beside them."""
+    err, ms, plain_ms, bound, call_ms = fk_rows[name]["exact frame"]
+    return {
+        "name": name, "route": "cuda",
+        "source": "simlod_tpu_torch/csrc/frame.cu", "replaces": REPLACES[name],
+        "launches": sum(FRAME_LAUNCHES[name].values()),
+        "launches_by_path": FRAME_LAUNCHES[name],
+        "max_abs_err": max(r[0] for r in fk_rows[name].values()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+        "library_ms": None, "call_ms": call_ms,
+        "ms_plain_ms_bound_ms_by_stream": {
+            k: list(r[1:4]) for k, r in fk_rows[name].items()}}
+
+
+def frame_kernels() -> dict:
+    """The kernels of csrc/frame.cu by name: every frame path launches each."""
+    from simlod_tpu_torch.ops import ragged
+    from simlod_tpu_torch.render import raster, visibility
+    return {"visibility": visibility.compute_visibility_cuda,
+            "plan_blocks": ragged.plan_blocks_cuda, "edl": raster.edl_cuda}
+
+
+# launches of each frame kernel on each main path, as note_frame_kernels
+# read them
+FRAME_LAUNCHES = {"visibility": {}, "plan_blocks": {}, "edl": {}}
+
+
+def zero_frame_kernels():
+    for f in frame_kernels().values():
+        f.launches = 0
+
+
+def note_frame_kernels(path: str):
+    """Adds the frame kernels' launches since zero_frame_kernels to
+    FRAME_LAUNCHES[name][path]; each must have launched."""
+    for name, f in frame_kernels().items():
+        FRAME_LAUNCHES[name][path] = FRAME_LAUNCHES[name].get(path, 0) \
+            + f.launches
+        check(f.launches > 0, f"{path}: the frames launched no {name} kernel")
+
+
+def _bit_err(a, b) -> int:
+    """Max abs difference of two tensors' bit patterns (0: bit-equal)."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _timed(fn, plain, name: str, calls: int = 1):
+    """(device ms, CUDA-event ms, plain ms) per call of a wrapper that
+    launches `calls` kernels of `name` per fn() (device ms by torch.profiler;
+    the CUDA-event time where it recorded none)."""
+    call_ms = time_ms(fn) / calls
+    dev_ms = kernel_device_ms(fn, name)
+    plain_ms = time_ms(plain) / calls
+    return (call_ms if dev_ms is None else dev_ms / calls), call_ms, plain_ms
+
+
+def edl_vs_plain(color, depth, u, what: str, card: str, rows: dict):
+    """The EDL kernel and its plain version on one frame's colour and depth
+    planes: bit-equal, then timed; adds (err, ms, plain ms, bound ms, call
+    ms) to rows["edl"][what]."""
+    import torch
+    from simlod_tpu_torch.render import raster
+    with uncounted():
+        got = raster.edl_cuda(color, depth, u, W, H)
+        want = raster.edl_reference(color, depth, u, W, H)
+        torch.cuda.synchronize()
+        err = _bit_err(got, want)
+        check(err == 0, f"edl kernel != plain version ({what}, max err {err})")
+        ms, call_ms, plain_ms = _timed(
+            lambda: raster.edl_cuda(color, depth, u, W, H),
+            lambda: raster.edl_reference(color, depth, u, W, H), "edl")
+    # colour and depth read once, the shaded colour written once
+    bound = bound_ms(12 * W * H)
+    rows["edl"][what] = (err, ms, plain_ms, bound, call_ms)
+    say(f"edl, {what}: {W}x{H}: kernel {ms:.4f} ms on the device ({call_ms:.4f}"
+        f" ms per call by CUDA events); plain {plain_ms:.4f} ms; bound "
+        f"{bound:.4f} ms; bit-equal; card: {card}")
+
+
+def frame_kernels_vs_plain(cfg, state, u, what: str, card: str, rows: dict,
+                           windows=(None,) * 4, pool=None, pooled=None):
+    """The visibility and plan_blocks kernels against their plain versions
+    on one frame of `state`: exact at `windows` (point, voxel, node, segment
+    windows), or with a draw pool at the pooled windows `pooled` (pool
+    points, pool voxels, exact points, exact voxels, node, segment). The
+    frame's visibility (with the pool's takes and masks) and every sample
+    set's block plan: bit-equal on every field, then timed; then the frame's
+    EDL (edl_vs_plain). Adds (err, ms, plain ms, bound ms, call ms) to
+    rows[name][what]."""
+    import torch
+    from simlod_tpu_torch.ops import ragged
+    from simlod_tpu_torch.render import visibility
+    from simlod_tpu_torch.render.render import (
+        _trim_directories, _trim_pool, render_components,
+        render_components_pooled)
+    nw, sw = (pooled or windows)[-2:]
+    st = _trim_directories(state, nw, sw)
+    pl = None if pool is None else _trim_pool(pool, nw)
+    w128 = lambda w, cap: ((w or cap) // 128) * 128
+    with uncounted():
+        vis = visibility.compute_visibility_cuda(st, u, pl, cfg)
+        ref = visibility.compute_visibility_reference(st, u, pl, cfg)
+        torch.cuda.synchronize()
+        err = max(_bit_err(getattr(vis, f), getattr(ref, f))
+                  for f in vis._fields if getattr(ref, f) is not None)
+        check(err == 0 and all((getattr(vis, f) is None)
+                               == (getattr(ref, f) is None)
+                               for f in vis._fields),
+              f"visibility kernel != plain version ({what}, max err {err})")
+        ms, call_ms, plain_ms = _timed(
+            lambda: visibility.compute_visibility_cuda(st, u, pl, cfg),
+            lambda: visibility.compute_visibility_reference(st, u, pl, cfg),
+            "visibility")
+        n = st.child_base.shape[0]
+        # 8 node columns read once (32 B a node), emitted / visible /
+        # is_large / dx / dy written (11 B), the 5 counts; with a pool its 2
+        # count columns read, 2 takes and 2 masks written (18 B)
+        nbytes = n * (32 + 11) + 20 + 16 + (n * 18 if pl is not None else 0)
+        rows["visibility"][what] = (err, ms, plain_ms, bound_ms(nbytes),
+                                    call_ms)
+        say(f"visibility, {what}: {n} node slots: kernel {ms:.4f} ms on the "
+            f"device ({call_ms:.4f} ms per call by CUDA events); plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms; bit-equal; "
+            f"card: {card}")
+        # the frame's plans, as raster.gather_*_samples and
+        # drawpool.gather_pool_* make them
+        if pl is None:
+            pw, vw = windows[:2]
+            plans = [((st.seg_off, st.seg_cnt, w128(pw, cfg.max_render_points)),
+                      dict(mask=vis.emitted, index=st.seg_node)),
+                     ((st.vox_voff, st.vox_vcnt,
+                       w128(vw, cfg.max_render_voxels)),
+                      dict(mask=vis.emitted))]
+        else:
+            ppw, pvw, epw, evw = pooled[:4]
+            plans = [((pl.pt_off, vis.take_p, w128(ppw, 0)), {}),
+                     ((pl.vx_off, vis.take_v, w128(pvw, 0)), {}),
+                     ((st.seg_off, st.seg_cnt, w128(epw, 0)),
+                      dict(mask=vis.exact_p, index=st.seg_node)),
+                     ((st.vox_voff, st.vox_vcnt, w128(evw, 0)),
+                      dict(mask=vis.exact_v))]
+        err = 0
+        for a, k in plans:
+            got = ragged.plan_blocks_cuda(*a, **k)
+            want = ragged.plan_blocks_reference(*a, **k)
+            torch.cuda.synchronize()
+            err = max(err, *(_bit_err(getattr(got, f), getattr(want, f))
+                             for f in ("src_row", "pstart_r", "pend_r", "r_ok",
+                                       "sr", "mpos", "count")))
+        check(err == 0, f"plan_blocks kernel != plain version ({what}, max "
+              f"err {err})")
+        ms, call_ms, plain_ms = _timed(
+            lambda: [ragged.plan_blocks_cuda(*a, **k) for a, k in plans],
+            lambda: [ragged.plan_blocks_reference(*a, **k) for a, k in plans],
+            "plan_", len(plans))
+        # per plan: off and cnt (and a segment's node) read once, the mask,
+        # every window block's 17 B and every segment's mpos written once
+        nbytes = sum(a[0].shape[0] * (8 + 4 * ("index" in k) + 4)
+                     + (k["mask"].shape[0] if "mask" in k else 0)
+                     + a[2] // 128 * 17 + 4 for a, k in plans) / len(plans)
+        rows["plan_blocks"][what] = (err, ms, plain_ms, bound_ms(nbytes),
+                                     call_ms)
+        say(f"plan_blocks, {what}: {len(plans)} plans of "
+            f"{[a[0].shape[0] for a, _ in plans]} segments into "
+            f"{[a[2] // 128 for a, _ in plans]} blocks: kernel {ms:.4f} ms per "
+            f"plan on the device ({call_ms:.4f} ms per call by CUDA events); "
+            f"plain {plain_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms; "
+            f"bit-equal; card: {card}")
+        if pool is None:
+            color, depth, _ = render_components(cfg, state, W, H, u, *windows)
+        else:
+            color, depth, _ = render_components_pooled(cfg, state, pool, W, H,
+                                                       u, *pooled)
+    edl_vs_plain(color, depth, u, what, card, rows)
 
 
 def samples_vs_plain(cfg, u, sets, what: str, card: str):
@@ -888,7 +1082,17 @@ def shard_shares(xyz, cube: float, n: int) -> list:
     return torch.bincount(own.long(), minlength=n).tolist()
 
 
-def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows, xrows):
+def composite_planes(colors, depths):
+    """render.composite_frames' depth-min of [K, H*W] planes, before its
+    EDL -> (colour, depth)."""
+    import torch
+    k = torch.argmin(depths, dim=0, keepdim=True)
+    return (torch.take_along_dim(colors, k, dim=0)[0],
+            torch.take_along_dim(depths, k, dim=0)[0])
+
+
+def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows, xrows,
+                       fk_rows):
     """Phase 15 (see the module docstring)."""
     t_phase = time.perf_counter()
     import numpy as np
@@ -911,6 +1115,7 @@ def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows, xrows):
                             memory_bytes=free // N_SHARDS)
     torch.cuda.reset_peak_memory_stats()
     raster.splat_samples.launches = 0
+    zero_frame_kernels()
     eng = ShardedEngine(cfg, mesh=mesh, width=W, height=H,
                         settings=Settings(), slot_factor=N_SHARDS)
     eng.open([path])
@@ -930,6 +1135,7 @@ def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows, xrows):
     first_ms = (time.perf_counter() - t1) * 1e3
     med_ms, img = median_ms(frame)
     launches["sharded"] = raster.splat_samples.launches
+    note_frame_kernels("sharded")
     peak = torch.cuda.max_memory_allocated()
     per_shard = [[int(v) for v in (
         torch.where(st.child_base < 0, st.num_points, 0).sum(),
@@ -951,6 +1157,11 @@ def phase_sharded_bulk(path, n, cov3, dev, card, launches, srows, xrows):
         _, sets, _ = frame_samples(cfg, st, u)
         planes.append(raster.rasterize(cfg, u, W, H, sets))
     host_img, host_d = host_depth_min(planes, u, dev)
+    frame_kernels_vs_plain(cfg, eng.state[0], u, "sharded shard 0", card,
+                           fk_rows)
+    edl_vs_plain(*composite_planes(torch.stack([c for c, _ in planes]),
+                                   torch.stack([d for _, d in planes])),
+                 u, "sharded composite", card, fk_rows)
     check(np.array_equal(eng.last_depth.cpu().numpy().reshape(-1), host_d)
           and torch.equal(img.reshape(-1), host_img),
           "sharded composite != host depth-min composite of the shard planes")
@@ -1005,6 +1216,7 @@ def phase_sharded_ooc(las_dir, n, dev, card, launches):
           f"sharded out-of-core: {N_SHARDS} x {cfg.point_capacity} points "
           f"hold the whole {n}")
     raster.splat_samples.launches = 0
+    zero_frame_kernels()
     ooc = ShardedOutOfCoreEngine(cfg, mesh=mesh, width=W, height=H,
                                  settings=Settings(), slot_factor=N_SHARDS)
     ooc.open([las_dir])
@@ -1022,6 +1234,7 @@ def phase_sharded_ooc(las_dir, n, dev, card, launches):
         return out
     med_ms, (img, depth) = median_ms(frame)
     launches["sharded_ooc"] = raster.splat_samples.launches
+    note_frame_kernels("sharded_ooc")
     check(rep["total_points"] == n,
           f"sharded out-of-core: {rep['total_points']} points of {n}")
     check(launches["sharded_ooc"] >= 6 * len(brick_s) * N_SHARDS,
@@ -1154,9 +1367,11 @@ def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
     # the app in process: 30 orbit frames while phase 3's file streams
     out = os.path.join(tmp, "app_frames")
     splat.launches = 0
+    zero_frame_kernels()
     rc, stdout = run_app([path, "--frames", "30", "--width", str(W),
                           "--height", str(H), "--out", out, "--json"])
     launches["app"] = splat.launches
+    note_frame_kernels("app")
     rep = report(stdout)
     files = sorted(os.listdir(out))
     check(rc == 0, f"app: exit code {rc}")
@@ -1184,10 +1399,12 @@ def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
     # the app on the LAS tiles: filter, boxes, PNG frames, the timing table
     out = os.path.join(tmp, "app_png")
     splat.launches = 0
+    zero_frame_kernels()
     rc, stdout = run_app([las_dir, "--frames", "8", "--width", str(W),
                           "--height", str(H), "--benchmark", "--filter-colors",
                           "--show-boxes", "--png", "--out", out])
     launches["app"] += splat.launches
+    note_frame_kernels("app")
     lines = stdout.splitlines()
     rows = {ln.split()[0]: ln.strip() for ln in lines if ln.startswith("  ")}
     check(rc == 0 and lines[0].startswith(f"loaded {n:,} points in "),
@@ -1231,6 +1448,7 @@ def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
 
     # the viewer, serving a fresh engine while it streams phase 3's file
     splat.launches = 0
+    zero_frame_kernels()
     eng = Engine(device=dev)
     eng.open([path])
     v = ViewerServer(eng, W, H, port=0)
@@ -1263,6 +1481,7 @@ def phase_app_viewer(tmp, path, las_dir, n, dev, card, launches):
               f"viewer reset: {rep['num_points']} points")
         check(reset["frames"] >= 5, f"viewer reset: {reset['frames']} frames")
         launches["viewer"] = splat.launches
+        note_frame_kernels("viewer")
         check(launches["viewer"] >= 40 + reset["frames"],
               f"viewer: {launches['viewer']} splat_samples launches")
         img, _ = eng.render(W, H)
@@ -1358,6 +1577,7 @@ def main(argv=None) -> int:
 
         launches, tile_launches = {}, {}
         splat.launches = tile.launches = resolve.launches = 0
+        zero_frame_kernels()
         eng = Engine(cfg=None, settings=Settings(), device=dev)
         eng.open([path])
         t0 = time.perf_counter()
@@ -1373,6 +1593,7 @@ def main(argv=None) -> int:
             img, stats = eng.render(W, H)
             frame_ms.append((time.perf_counter() - t1) * 1e3)
         launches["bulk_exact"] = splat.launches
+        note_frame_kernels("bulk_exact")
         check(tile.launches == resolve.launches == 0,
               "the default route launched the tile kernel or splat_resolve")
         rep = eng.report()
@@ -1413,6 +1634,9 @@ def main(argv=None) -> int:
 
         # --- phase 4: kernels against plain versions on this frame ---
         rows, srows, xrows = {}, {}, {}
+        fk_rows = {name: {} for name in FRAME_LAUNCHES}
+        frame_kernels_vs_plain(eng.cfg, eng.state, eng.uniforms(W, H),
+                               "exact frame", card, fk_rows, eng.last_windows)
         for hqs in (True, False):
             eng.settings.use_high_quality_shading = hqs
             u = eng.uniforms(W, H)
@@ -1438,6 +1662,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         splat.launches = 0
+        zero_frame_kernels()
         eng = Engine(cfg=None, settings=Settings(point_budget=1.0,
                                                  frame_budget_ms=50.0),
                      device=dev)
@@ -1453,6 +1678,7 @@ def main(argv=None) -> int:
             frame_ms.append((time.perf_counter() - t1) * 1e3)
         loop_s = time.perf_counter() - t0
         launches["streamed_pooled"] = splat.launches
+        note_frame_kernels("streamed_pooled")
         peak = torch.cuda.max_memory_allocated()
         rep = eng.report()
         frames = len(frame_ms)
@@ -1492,6 +1718,7 @@ def main(argv=None) -> int:
                 eng.settings.point_budget = budget
                 key = "post_load_pooled" if budget else "post_load_exact"
                 splat.launches = 0
+                zero_frame_kernels()
                 eng.render(W, H)     # builds the pool / sizes the windows
                 ms = []
                 for _ in range(5):
@@ -1499,6 +1726,7 @@ def main(argv=None) -> int:
                     img, stats = eng.render(W, H)
                     ms.append((time.perf_counter() - t1) * 1e3)
                 launches[key] += splat.launches
+                note_frame_kernels(key)
                 check(splat.launches >= 6, f"{key}: not through the splat_samples kernel")
                 check(coverage(img, C) > 0.05, f"{key}: too few pixels drawn")
                 post[budget] = (float(np.median(ms)), stats.render_truncated,
@@ -1519,6 +1747,10 @@ def main(argv=None) -> int:
         # --- phase 8: kernel against plain version on the pooled stream ---
         eng.settings.point_budget = 1.0
         eng.render(W, H)
+        frame_kernels_vs_plain(eng.cfg, eng.state, eng.uniforms(W, H),
+                               "pooled frame", card, fk_rows,
+                               pool=eng._draw_pool,
+                               pooled=eng.last_pooled_windows)
         for hqs in (True, False):
             eng.settings.use_high_quality_shading = hqs
             u = eng.uniforms(W, H)
@@ -1545,6 +1777,7 @@ def main(argv=None) -> int:
         dirs, tile_sizes = write_tiles(tmp, xyz, rgba)
         del xyz, rgba
         splat.launches = 0
+        zero_frame_kernels()
         eng10 = Engine(cfg=None, settings=Settings(), device=dev)
         eng10.open([dirs["las"]])
         t0 = time.perf_counter()
@@ -1555,6 +1788,7 @@ def main(argv=None) -> int:
         rep = eng10.report()
         las_ms, (img, stats) = median_ms(lambda: eng10.render(W, H))
         launches["las_bulk"] = splat.launches
+        note_frame_kernels("las_bulk")
         las_tree = {k: rep[k] for k in TREE}
         cover = coverage(img, C)
         check(rep["num_points"] + rep["num_points_dropped"] == n,
@@ -1565,6 +1799,9 @@ def main(argv=None) -> int:
         check(launches["las_bulk"] > 0, "LAS frames not through the splat_samples kernel")
         route_ms["LAS exact"] = route_pair(eng10, img, "las_bulk",
                                            tile_launches, card)
+        frame_kernels_vs_plain(eng10.cfg, eng10.state, eng10.uniforms(W, H),
+                               "LAS exact frame", card, fk_rows,
+                               eng10.last_windows)
         say(f"LAS bulk load of {len(tile_sizes)} tiles: {load_s:.2f} s = "
             f"{n / load_s / 1e6:.2f} MP/s; stream t_decode "
             f"{rep['stream']['t_decode']} s (summed over loader threads); host "
@@ -1591,6 +1828,7 @@ def main(argv=None) -> int:
         from simlod_tpu_torch.formats import laz
         decodes, decode_s = laz.decode_count, laz.decode_seconds
         splat.launches = 0
+        zero_frame_kernels()
         eng = Engine(cfg=None, settings=Settings(point_budget=1.0,
                                                  frame_budget_ms=50.0),
                      device=dev)
@@ -1605,6 +1843,7 @@ def main(argv=None) -> int:
             frame_ms.append((time.perf_counter() - t1) * 1e3)
         loop_s = time.perf_counter() - t0
         launches["laz_streamed"] = splat.launches
+        note_frame_kernels("laz_streamed")
         rep = eng.report()
         tree = {k: rep[k] for k in TREE}
         n_dec = laz.decode_count - decodes
@@ -1659,9 +1898,11 @@ def main(argv=None) -> int:
             for boxes in (False, True):
                 eng10.settings.show_bounding_box = boxes
                 splat.launches = 0
+                zero_frame_kernels()
                 ms, (img, stats) = median_ms(lambda: eng10.render(W, H))
                 if boxes:
                     launches["overlay"] += splat.launches
+                    note_frame_kernels("overlay")
                     check(splat.launches >= 6,
                           "overlay frames not through the splat_samples kernel")
                     route_ms[f"overlay {'pooled' if budget else 'exact'}"] = \
@@ -1686,6 +1927,7 @@ def main(argv=None) -> int:
         from simlod_tpu_torch.outofcore import OutOfCoreEngine
         from simlod_tpu_torch.render.render import composite_frames
         splat.launches = 0
+        zero_frame_kernels()
         ooc = OutOfCoreEngine(EngineConfig.auto(total_points=max(tile_sizes),
                                                 device=dev),
                               Settings(), device=dev)
@@ -1711,9 +1953,11 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             return img, st
         splat.launches = 0
+        zero_frame_kernels()
         ooc_ms, (img, _) = median_ms(ooc_frame)
         visible = len(ooc.last_drawn_bricks)
         frame_launches = splat.launches
+        note_frame_kernels("ooc_bricks")
         check(frame_launches >= 6 * visible > 0,
               f"{frame_launches} kernel launches for {visible} visible bricks "
               "over 6 frames")
@@ -1724,6 +1968,9 @@ def main(argv=None) -> int:
                                        torch.stack([p[2] for p in planes]),
                                        u, W, H)
         host_img, host_d = host_depth_min([p[1:3] for p in planes], u, dev)
+        edl_vs_plain(*composite_planes(torch.stack([p[1] for p in planes]),
+                                       torch.stack([p[2] for p in planes])),
+                     u, "out-of-core composite", card, fk_rows)
         check(np.array_equal(depth.cpu().numpy(), host_d),
               "composite depth != host depth-min of the brick planes")
         check(torch.equal(comp.reshape(-1), host_img)
@@ -1739,12 +1986,14 @@ def main(argv=None) -> int:
         ooc.camera.world = ooc.orbit.world()
         # the check's render_planes above is not part of the path's count
         splat.launches = 0
+        zero_frame_kernels()
         paged = ooc.auto_page(W, H)
         check(paged is not None, "closeup: no brick paged in")
         t1 = time.perf_counter()
         img, close_stats = ooc_frame()
         close_ms = (time.perf_counter() - t1) * 1e3
         launches["ooc_bricks"] = frame_launches + splat.launches
+        note_frame_kernels("ooc_bricks")
         check(coverage(img, C) > 0.05, "closeup: too few pixels drawn")
         close_med, (img, _) = median_ms(ooc_frame)
         route_ms["out-of-core closeup"] = route_pair(
@@ -1760,6 +2009,9 @@ def main(argv=None) -> int:
         st = ooc.resident_state(paged)
         rcfg = ooc._render_cfg()
         u = ooc.uniforms(W, H)
+        frame_kernels_vs_plain(rcfg, st, u, "out-of-core paged brick", card,
+                               fk_rows, (rcfg.max_render_points,
+                                         rcfg.max_render_voxels, None, None))
         for hqs in (True, False):
             ooc.settings.use_high_quality_shading = hqs
             u = ooc.uniforms(W, H)
@@ -1781,7 +2033,8 @@ def main(argv=None) -> int:
 
         # --- phases 14-16: the sharded engine on 4 shards of the card ---
         phase_small_sharded(tmp, dev)
-        phase_sharded_bulk(path, n, cov3, dev, card, launches, srows, xrows)
+        phase_sharded_bulk(path, n, cov3, dev, card, launches, srows, xrows,
+                           fk_rows)
         gc.collect()
         torch.cuda.empty_cache()
         phase_sharded_ooc(dirs["las"], n, dev, card, launches)
@@ -1834,7 +2087,7 @@ def main(argv=None) -> int:
         "ms": ex[1], "plain_ms": ex[2], "bound_ms": ex[3], "bound_by": "bytes",
         "library_ms": None, "stage_ms": sx[5],
         "ms_plain_ms_bound_ms_by_stream": by_stream(rows),
-    }]}))
+    }, *(frame_kernel_entry(name, fk_rows) for name in FRAME_LAUNCHES)]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

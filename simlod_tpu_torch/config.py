@@ -4,7 +4,8 @@
                    JAX package, so one config means the same octree in both)
   - Settings     : interactive render/LOD knobs (mirrors the reference `settings`)
   - Uniforms     : per-frame values as tensors on the device, with the
-                   switches also as host values (RenderFlags)
+                   switches (RenderFlags) and the frame kernels' values
+                   (UniformsHost) also as host values
   - Stats        : engine counters (mirrors HostDeviceInterface.h:46-71)
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from . import constants as C
@@ -177,10 +179,25 @@ class RenderFlags:
     enable_edl: bool = True
 
 
+@dataclasses.dataclass(frozen=True)
+class UniformsHost:
+    """Host copies of the per-frame values the frame kernels take by value
+    (render/visibility.py, render/raster.edl): the same float32 values as the
+    device tensors, so a kernel launch reads nothing back."""
+
+    transform_update_bound: tuple   # 16 floats, row-major [4, 4]
+    width: float
+    height: float
+    min_node_size: float
+    point_budget: float
+    edl_strength: float
+
+
 @dataclasses.dataclass
 class Uniforms:
     """Per-frame values on the device (reference: HostDeviceInterface.h:10-44),
-    and the switches among them again as host values (`flags`).
+    the switches among them again as host values (`flags`), and the values
+    the frame kernels take by value (`host`).
 
     Matrices are row-major [4,4] float32 acting on column vectors, exactly like the
     reference's `uniforms.transform * float4`."""
@@ -202,39 +219,56 @@ class Uniforms:
     edl_strength: torch.Tensor            # f32
     point_budget: torch.Tensor            # f32
     flags: RenderFlags                    # host copies of the switches above
+    host: UniformsHost                    # host copies of the kernels' values
 
     @staticmethod
     def make(width: int, height: int, transform, transform_update_bound=None,
              settings: Settings | None = None, device=None) -> "Uniforms":
+        """`transform` and `transform_update_bound` are host arrays (numpy or
+        CPU tensors): their float32 values are kept on the host too."""
         s = settings or Settings()
         device = torch.device(device if device is not None else "cpu")
-        transform = torch.as_tensor(transform, dtype=torch.float32).to(device)
         if transform_update_bound is None:
             transform_update_bound = transform
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-        b = lambda v: torch.tensor(bool(v), dtype=torch.bool, device=device)
+        t = np.asarray(torch.as_tensor(transform, dtype=torch.float32))
+        tub = np.asarray(torch.as_tensor(transform_update_bound,
+                                         dtype=torch.float32))
+        # every value in one buffer, so that it reaches the device in one copy:
+        # 38 float32 (6 scalars, the two matrices), point_size, 7 switches
+        floats = np.concatenate([np.array(
+            [width, height, s.lod, s.min_node_size, s.edl_strength,
+             s.point_budget], np.float32), t.reshape(16), tub.reshape(16)])
+        switches = (s.show_bounding_box, s.show_points, s.color_by_node,
+                    s.color_by_lod, s.color_white, s.use_high_quality_shading,
+                    s.enable_edl)
+        raw = floats.tobytes() \
+            + np.array([s.point_size], np.int32).tobytes() \
+            + np.array(switches, np.bool_).tobytes()
+        buf = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
+        f = buf[:152].view(torch.float32)
+        sw = buf[156:163].view(torch.bool)
         return Uniforms(
-            width=f32(width), height=f32(height),
-            transform=transform,
-            transform_update_bound=torch.as_tensor(
-                transform_update_bound, dtype=torch.float32).to(device),
-            show_bounding_box=b(s.show_bounding_box),
-            show_points=b(s.show_points),
-            color_by_node=b(s.color_by_node),
-            color_by_lod=b(s.color_by_lod),
-            color_white=b(s.color_white),
-            use_high_quality_shading=b(s.use_high_quality_shading),
-            lod=f32(s.lod), min_node_size=f32(s.min_node_size),
-            point_size=torch.tensor(s.point_size, dtype=torch.int32,
-                                    device=device),
-            enable_edl=b(s.enable_edl), edl_strength=f32(s.edl_strength),
-            point_budget=f32(s.point_budget),
+            width=f[0], height=f[1],
+            transform=f[6:22].view(4, 4),
+            transform_update_bound=f[22:38].view(4, 4),
+            show_bounding_box=sw[0], show_points=sw[1], color_by_node=sw[2],
+            color_by_lod=sw[3], color_white=sw[4],
+            use_high_quality_shading=sw[5],
+            lod=f[2], min_node_size=f[3],
+            point_size=buf[152:156].view(torch.int32)[0],
+            enable_edl=sw[6], edl_strength=f[4], point_budget=f[5],
             flags=RenderFlags(
                 show_bounding_box=bool(s.show_bounding_box),
                 color_by_node=bool(s.color_by_node),
                 color_by_lod=bool(s.color_by_lod),
                 color_white=bool(s.color_white),
                 enable_edl=bool(s.enable_edl)),
+            host=UniformsHost(
+                transform_update_bound=tuple(floats[22:38].tolist()),
+                width=float(floats[0]), height=float(floats[1]),
+                min_node_size=float(floats[3]),
+                point_budget=float(floats[5]),
+                edl_strength=float(floats[4])),
         )
 
 

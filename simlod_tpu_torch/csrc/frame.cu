@@ -1,0 +1,552 @@
+// Frame kernels: the per-frame stages around the splat for NVIDIA Hopper
+// (sm_90a). On the TPU the JAX package runs a frame as one jitted program
+// (simlod_tpu/render/render.py:139-140), and XLA fuses these stages into a
+// few device loops; in eager PyTorch each of their ops was a launch of its
+// own (~600 per 1080p frame, while the splat itself is four). Here each stage
+// is one or a few launches:
+//
+//   visibility  (render/visibility.py; JAX visibility.compute_visibility,
+//               simlod_tpu/render/visibility.py:42; the reference's
+//               compute_visibility_disjunct, render.cu:690-934): one thread per
+//               node slot computes the node's box, the 8-corner screen extents,
+//               the p-vertex frustum test, has_samples, visible, is_large,
+//               the parent's is_large (recomputed in the same thread) and
+//               emitted; the five visible counts are warp-reduced and added with
+//               integer atomics (order-free). With a draw pool it also writes
+//               the node's budget, the two pool takes and the two exact masks
+//               (render/drawpool.py node_budgets, split_masks, _pool_take).
+//   plan_blocks (ops/ragged.py; JAX ragged.plan, simlod_tpu/ops/ragged.py:46):
+//               the block plan of a ragged gather from the unmasked (off, cnt)
+//               columns and the frame's selection: a block scan of the
+//               segments' row counts, one block's scan of the block sums, and
+//               a fill in which each warp writes its 32 segments' rows.
+//   edl         (render/raster.edl; JAX raster.edl,
+//               simlod_tpu/render/raster.py:259): one thread per pixel reads
+//               its depth and its 4 neighbours' (wrapping at the image edges,
+//               as torch.roll), and shades its colour.
+//
+// What bounds them: memory, and little of it (a node's 32 B, a segment's 8-13
+// B, a plan row's 17 B, a pixel's 12 B): each is a few microseconds on the
+// card. What the design does about it: every launch reads its inputs once and
+// writes its outputs once; nothing in between goes to device memory except
+// the plan's per-segment scan (4 B a segment) and its block sums; no launch
+// needs a host read, and the frame's scalars come by value.
+//
+// Bit-equality with the plain versions (torch on the card, one rounding per
+// op): every float op is an explicit __f*_rn intrinsic in torch's op order
+// (nvcc would contract a*b+c into an FMA otherwise), int -> float is
+// __int2float_rn, float -> int32 is __float2int_rz (torch's cast: truncate,
+// saturate, NaN -> 0); exp2f, log2f and expf are the libdevice functions that
+// torch's CUDA exp2, log2 and exp call (NVCC_FLAGS has no --use_fast_math);
+// torch.minimum / maximum / clamp propagate NaN where fminf / fmaxf drop it,
+// so the kernels test for NaN first, as torch does; torch's CUDA division of
+// a tensor by a Python scalar multiplies by the scalar's float reciprocal.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_BLOCKS = 4096;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int A = 128;  // ragged window block (ops/ragged.py A)
+
+inline int blocks_for(long long n) {
+  const long long b = (n + THREADS - 1) / THREADS;
+  return static_cast<int>(b < 1 ? 1 : (b > MAX_BLOCKS ? MAX_BLOCKS : b));
+}
+
+// torch.minimum / maximum on float tensors: a NaN operand is the result
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+// ((x m0 + y m1) + z m2) + m3: one row of the transform, in torch's order
+__device__ __forceinline__ float dot4(const float* m, float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, m[0]), __fmul_rn(y, m[1])),
+                             __fmul_rn(z, m[2])),
+                   m[3]);
+}
+
+// ---- visibility -------------------------------------------------------------
+
+struct VisArgs {
+  // [n] node columns of the (trimmed) directory
+  const int* nx;
+  const int* ny;
+  const int* nz;
+  const int* level;
+  const int* parent;
+  const int* child_base;
+  const int* num_points;
+  const int* num_voxels;
+  const int* num_nodes;  // device scalar
+  const float* box_min;  // [3]
+  const float* cube_size;
+  // [n] draw-pool counts, or null without a pool
+  const int* pool_pt_cnt;
+  const int* pool_vx_cnt;
+  // outputs: [n] each, counts [5]; with a pool also the takes and masks
+  bool* emitted;
+  bool* visible;
+  bool* is_large;
+  float* dx;
+  float* dy;
+  int* counts;
+  int* take_p;
+  int* take_v;
+  bool* exact_p;
+  bool* exact_v;
+  float m[16];       // transform_update_bound, row-major
+  float planes[24];  // frustum.frustum_planes_host(m)
+  float width, height, min_node_size, point_budget;
+  int n, draw_cap;
+};
+
+struct Extent {
+  float dx, dy;
+  float mn[3], mx[3];
+};
+
+// the node's box (visibility.py: box_min + size * n, + size) and the screen
+// extent of its 8 corners (min / max over the corners, NaN-propagating)
+__device__ Extent node_extent(const VisArgs& a, int i) {
+  Extent e;
+  const float size = __fdiv_rn(*a.cube_size, exp2f(__int2float_rn(a.level[i])));
+  const int q[3] = {a.nx[i], a.ny[i], a.nz[i]};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    e.mn[k] = __fadd_rn(a.box_min[k], __fmul_rn(size, __int2float_rn(q[k])));
+    e.mx[k] = __fadd_rn(e.mn[k], size);
+  }
+  float sminx = 3.4e38f, smaxx = -3.4e38f, sminy = 3.4e38f, smaxy = -3.4e38f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float px = (c >> 2) & 1 ? e.mx[0] : e.mn[0];
+    const float py = (c >> 1) & 1 ? e.mx[1] : e.mn[1];
+    const float pz = c & 1 ? e.mx[2] : e.mn[2];
+    const float n0 = dot4(a.m, px, py, pz);
+    const float n1 = dot4(a.m + 4, px, py, pz);
+    const float w = dot4(a.m + 12, px, py, pz);
+    const float sx = __fmul_rn(__fadd_rn(__fmul_rn(__fdiv_rn(n0, w), 0.5f), 0.5f), a.width);
+    const float sy = __fmul_rn(__fadd_rn(__fmul_rn(__fdiv_rn(n1, w), 0.5f), 0.5f), a.height);
+    sminx = nan_min(sminx, sx);
+    smaxx = nan_max(smaxx, sx);
+    sminy = nan_min(sminy, sy);
+    smaxy = nan_max(smaxy, sy);
+  }
+  e.dx = __fsub_rn(smaxx, sminx);
+  e.dy = __fsub_rn(smaxy, sminy);
+  return e;
+}
+
+__device__ __forceinline__ bool large(const VisArgs& a, float dx, float dy) {
+  const float t = __fmul_rn(a.min_node_size, 2.0f);
+  return dx > t || dy > t;
+}
+
+// drawpool.node_budgets: ceil(point_budget * min(area, 2e9)) clamped to
+// [0, 2e9], NaN -> 0, as int32; INT32_MAX without decimation
+__device__ int node_budget(const VisArgs& a, float dx, float dy) {
+  if (!(a.point_budget > 0.0f)) return 0x7FFFFFFF;
+  const float area = __fmul_rn(nan_max(dx, 0.0f), nan_max(dy, 0.0f));
+  const float c = area != area ? area : fminf(area, 2.0e9f);
+  float b = ceilf(__fmul_rn(a.point_budget, c));
+  b = b != b ? b : fminf(fmaxf(b, 0.0f), 2.0e9f);
+  return b != b ? 0 : __float2int_rz(b);
+}
+
+__global__ void __launch_bounds__(THREADS) visibility(const __grid_constant__ VisArgs a) {
+  const int num_nodes = *a.num_nodes;
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  // whole warps run every iteration: the count reduction needs all 32 lanes
+  for (long long t = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+       t - lane < a.n; t += stride) {
+    unsigned c_nodes = 0, c_inner = 0, c_leaves = 0, c_points = 0, c_voxels = 0;
+    if (t < a.n) {
+      const int i = static_cast<int>(t);
+      const bool active = i < num_nodes;
+      const Extent e = node_extent(a, i);
+      bool in_frustum = true;
+#pragma unroll
+      for (int p = 0; p < 6; ++p) {
+        const float* pl = a.planes + 4 * p;
+        const float px = pl[0] > 0.0f ? e.mx[0] : e.mn[0];
+        const float py = pl[1] > 0.0f ? e.mx[1] : e.mn[1];
+        const float pz = pl[2] > 0.0f ? e.mx[2] : e.mn[2];
+        const float dist = __fadd_rn(
+            __fadd_rn(__fadd_rn(__fmul_rn(px, pl[0]), __fmul_rn(py, pl[1])), __fmul_rn(pz, pl[2])),
+            pl[3]);
+        in_frustum = in_frustum && dist >= 0.0f;
+      }
+      const int np = a.num_points[i], nv = a.num_voxels[i], cb = a.child_base[i];
+      const bool has_samples = np > 0 || nv > 0 || cb >= 0;
+      const bool vis = active && in_frustum && has_samples;
+      const bool il = active && large(a, e.dx, e.dy);
+      // the parent's is_large, from its own box (parent clamped into the
+      // directory, as visibility.py indexes it)
+      const int par = a.parent[i];
+      bool parent_large = false;
+      if (par >= 0) {
+        const int j = min(par, a.n - 1);
+        const Extent pe = node_extent(a, j);
+        parent_large = j < num_nodes && large(a, pe.dx, pe.dy);
+      }
+      const bool leaf = cb < 0;
+      const bool em = vis && ((parent_large && !il) || (il && leaf));
+      a.emitted[i] = em;
+      a.visible[i] = vis;
+      a.is_large[i] = il;
+      a.dx[i] = e.dx;
+      a.dy[i] = e.dy;
+      const bool leafish = em && np > 0;
+      const bool innerish = em && np == 0 && nv > 0;
+      c_nodes = em;
+      c_inner = innerish;
+      c_leaves = leafish;
+      c_points = leafish ? static_cast<unsigned>(np) : 0u;
+      c_voxels = innerish ? static_cast<unsigned>(nv) : 0u;
+      if (a.pool_pt_cnt) {  // draw pool: budgets, split masks, takes
+        const int budget = node_budget(a, e.dx, e.dy);
+        const int pc = a.pool_pt_cnt[i], vc = a.pool_vx_cnt[i];
+        const bool poolable_p = np <= a.draw_cap && (pc > 0 || np == 0);
+        const bool poolable_v = nv <= a.draw_cap && (vc > 0 || nv == 0);
+        a.take_p[i] = em && poolable_p ? min(pc, budget) : 0;
+        a.take_v[i] = em && poolable_v ? min(vc, budget) : 0;
+        a.exact_p[i] = em && np > 0 && !poolable_p;
+        a.exact_v[i] = em && nv > 0 && !poolable_v;
+      }
+    }
+    c_nodes = __reduce_add_sync(FULL, c_nodes);
+    c_inner = __reduce_add_sync(FULL, c_inner);
+    c_leaves = __reduce_add_sync(FULL, c_leaves);
+    c_points = __reduce_add_sync(FULL, c_points);
+    c_voxels = __reduce_add_sync(FULL, c_voxels);
+    if (lane == 0) {
+      unsigned* cnt = reinterpret_cast<unsigned*>(a.counts);
+      if (c_nodes) atomicAdd(cnt + 0, c_nodes);
+      if (c_inner) atomicAdd(cnt + 1, c_inner);
+      if (c_leaves) atomicAdd(cnt + 2, c_leaves);
+      if (c_points) atomicAdd(cnt + 3, c_points);
+      if (c_voxels) atomicAdd(cnt + 4, c_voxels);
+    }
+  }
+}
+
+// ---- plan_blocks ------------------------------------------------------------
+
+constexpr int SCAN = 1024;  // segments per scan block (one per thread)
+
+struct PlanArgs {
+  const int* off;    // [S] segment start in the pool
+  const int* cnt;    // [S] segment length
+  const bool* mask;  // selection, or null: every segment
+  const int* index;  // [S] mask index per segment, or null: mask[i]
+  int S, mask_len, WR, out_len, nb;
+  int* local;  // [S] scratch: exclusive row offset within the scan block
+  int* bsum;   // [2 nb] scratch: block row sums, then block sample sums
+  int* total;  // [1] scratch: rows of all segments
+  int* src_row;
+  int* pstart;
+  int* pend;
+  bool* r_ok;
+  int* sr;
+  int* mpos;   // [S]
+  int* count;  // [1]: min(sum of selected counts, out_len)
+};
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
+}
+
+struct Seg {
+  int c, row0, phase, rcnt;
+};
+
+// raster.gather_*_samples' masking, then ragged.plan_blocks' per-segment
+// quantities (zero for an empty segment)
+__device__ Seg segment(const PlanArgs& a, int i) {
+  Seg s;
+  int c = a.cnt[i];
+  if (a.mask) {
+    bool sel;
+    if (a.index) {
+      const int k = a.index[i];
+      sel = c > 0 && k >= 0 && a.mask[min(k, a.mask_len - 1)];
+    } else {
+      sel = a.mask[i];
+    }
+    if (!sel) c = 0;
+  }
+  s.c = c;
+  if (c > 0) {
+    const int o = a.off[i];
+    s.row0 = floor_div(o, A);
+    s.phase = o - s.row0 * A;
+    s.rcnt = floor_div(o + c + A - 1, A) - s.row0;
+  } else {
+    s.row0 = s.phase = s.rcnt = 0;
+  }
+  return s;
+}
+
+// exclusive block scan of v over SCAN threads; returns the block total in tot
+__device__ int block_scan(int v, int& tot) {
+  __shared__ int warp_sums[SCAN / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_sums[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(FULL, w, d);
+      if (lane >= d) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  tot = warp_sums[SCAN / 32 - 1];
+  const int before = warp ? warp_sums[warp - 1] : 0;
+  __syncthreads();  // warp_sums is reused by the next call
+  return before + x - v;
+}
+
+// 1: per scan block, each segment's row offset within the block, and the
+// block's sums of rows and of selected samples
+__global__ void __launch_bounds__(SCAN) plan_scan(const __grid_constant__ PlanArgs a) {
+  const int i = blockIdx.x * SCAN + threadIdx.x;
+  Seg s{0, 0, 0, 0};
+  if (i < a.S) s = segment(a, i);
+  int rows, samples;
+  const int before = block_scan(s.rcnt, rows);
+  block_scan(s.c, samples);
+  if (i < a.S) a.local[i] = before;
+  if (threadIdx.x == 0) {
+    a.bsum[blockIdx.x] = rows;
+    a.bsum[a.nb + blockIdx.x] = samples;
+  }
+}
+
+// 2: one block scans the block sums into block offsets
+__global__ void __launch_bounds__(SCAN) plan_scan_sums(const __grid_constant__ PlanArgs a) {
+  int carry = 0, samples = 0;
+  for (int base = 0; base < a.nb; base += SCAN) {
+    const int j = base + threadIdx.x;
+    int tot, stot;
+    const int before = block_scan(j < a.nb ? a.bsum[j] : 0, tot);
+    block_scan(j < a.nb ? a.bsum[a.nb + j] : 0, stot);
+    if (j < a.nb) a.bsum[j] = carry + before;
+    carry += tot;
+    samples += stot;
+  }
+  if (threadIdx.x == 0) {
+    *a.total = carry;
+    *a.count = min(samples, a.out_len);
+  }
+}
+
+__device__ __forceinline__ void write_row(const PlanArgs& a, int r, int src_row, int pstart,
+                                          int c, bool ok, int seg) {
+  a.src_row[r] = src_row;
+  a.pstart[r] = pstart;
+  a.pend[r] = pstart + c;
+  a.r_ok[r] = ok;
+  a.sr[r] = seg;
+}
+
+// 3: each warp writes the rows of its 32 segments (one segment at a time, a
+// row a lane) and their mpos; rows past the last segment's end get the plain
+// version's values for them (segment S - 1, r_ok false)
+__global__ void __launch_bounds__(THREADS) plan_fill(const __grid_constant__ PlanArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long t = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+       t - lane < a.S; t += stride) {
+    const int i = static_cast<int>(t);
+    Seg s{0, 0, 0, 0};
+    int ro = 0;
+    if (i < a.S) {
+      s = segment(a, i);
+      ro = a.local[i] + a.bsum[i / SCAN];
+      a.mpos[i] = s.c > 0 ? ro * A + s.phase : a.out_len;
+    }
+    for (int k = 0; k < 32; ++k) {
+      const int kro = __shfl_sync(FULL, ro, k);
+      const int krc = __shfl_sync(FULL, s.rcnt, k);
+      const int krow0 = __shfl_sync(FULL, s.row0, k);
+      const int kstart = kro * A + __shfl_sync(FULL, s.phase, k);
+      const int kc = __shfl_sync(FULL, s.c, k);
+      const int end = min(kro + krc, a.WR);
+      for (int r = kro + lane; r < end; r += 32)
+        write_row(a, r, krow0 + (r - kro), kstart, kc, true, static_cast<int>(t - lane) + k);
+    }
+  }
+  const int total = *a.total;
+  if (total >= a.WR) return;
+  const Seg last = segment(a, a.S - 1);
+  const int ro = total - last.rcnt;
+  for (long long r = total + static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+       r < a.WR; r += stride) {
+    const int ri = static_cast<int>(r);
+    write_row(a, ri, last.row0 + (ri - ro), ro * A + last.phase, last.c, false, a.S - 1);
+  }
+}
+
+// ---- edl ----------------------------------------------------------------
+
+// raster.edl: response = sum over the 4 neighbours (wrapping) of
+// max(log2(d) - log2(d_n), 0), NaN -> 0; shade = exp(-(response / 50) * 300 *
+// strength); each colour byte times shade, truncated; alpha 0xFF
+__global__ void __launch_bounds__(THREADS) edl(const int* __restrict__ color,
+                                               const int* __restrict__ depth, int width,
+                                               int height, float strength,
+                                               int* __restrict__ out) {
+  const long long npx = static_cast<long long>(width) * height;
+  const int dxs[4] = {0, 1, 0, -1}, dys[4] = {1, 0, -1, 0};
+  for (long long p = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; p < npx;
+       p += static_cast<long long>(gridDim.x) * THREADS) {
+    const int x = static_cast<int>(p % width), y = static_cast<int>(p / width);
+    const float l = log2f(__int_as_float(depth[p]));
+    float resp = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int xn = x + dxs[k], yn = y + dys[k];
+      xn = xn < 0 ? xn + width : (xn >= width ? xn - width : xn);
+      yn = yn < 0 ? yn + height : (yn >= height ? yn - height : yn);
+      const float ln = log2f(__int_as_float(depth[xn + static_cast<long long>(width) * yn]));
+      const float diff = __fsub_rn(l, ln);
+      resp = __fadd_rn(resp, diff != diff ? 0.0f : fmaxf(diff, 0.0f));
+    }
+    resp = __fmul_rn(resp, 1.0f / 50.0f);
+    const float shade = expf(__fmul_rn(__fmul_rn(-resp, 300.0f), strength));
+    const uint32_t c = static_cast<uint32_t>(color[p]);
+    long long v = 0xFF000000ll;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float ch = __fmul_rn(__int2float_rn(static_cast<int>((c >> (8 * k)) & 0xFFu)), shade);
+      v |= static_cast<long long>(ch) << (8 * k);
+    }
+    out[p] = static_cast<int>(static_cast<uint32_t>(v));
+  }
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes in kernels/__init__.py). Each launches on
+// `stream`, allocates nothing (outputs and scratch come from the caller), does
+// not synchronise, and returns the first nonzero cudaGetLastError().
+
+// visibility: `ptrs` is a host array of 23 device pointers in VisArgs' order
+// (the two pool counts and the four pool outputs null without a pool),
+// `floats` a host array of 44 floats (m[16], planes[24], width, height,
+// min_node_size, point_budget). Two launches: a memset of counts[5], the
+// kernel.
+extern "C" int simlod_visibility(const void* ptrs, const void* floats, int n, int draw_cap,
+                                 void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  VisArgs a{};
+  const long long* p = static_cast<const long long*>(ptrs);
+  const float* f = static_cast<const float*>(floats);
+  auto ptr = [&](int k) { return reinterpret_cast<void*>(p[k]); };
+  a.nx = static_cast<const int*>(ptr(0));
+  a.ny = static_cast<const int*>(ptr(1));
+  a.nz = static_cast<const int*>(ptr(2));
+  a.level = static_cast<const int*>(ptr(3));
+  a.parent = static_cast<const int*>(ptr(4));
+  a.child_base = static_cast<const int*>(ptr(5));
+  a.num_points = static_cast<const int*>(ptr(6));
+  a.num_voxels = static_cast<const int*>(ptr(7));
+  a.num_nodes = static_cast<const int*>(ptr(8));
+  a.box_min = static_cast<const float*>(ptr(9));
+  a.cube_size = static_cast<const float*>(ptr(10));
+  a.pool_pt_cnt = static_cast<const int*>(ptr(11));
+  a.pool_vx_cnt = static_cast<const int*>(ptr(12));
+  a.emitted = static_cast<bool*>(ptr(13));
+  a.visible = static_cast<bool*>(ptr(14));
+  a.is_large = static_cast<bool*>(ptr(15));
+  a.dx = static_cast<float*>(ptr(16));
+  a.dy = static_cast<float*>(ptr(17));
+  a.counts = static_cast<int*>(ptr(18));
+  a.take_p = static_cast<int*>(ptr(19));
+  a.take_v = static_cast<int*>(ptr(20));
+  a.exact_p = static_cast<bool*>(ptr(21));
+  a.exact_v = static_cast<bool*>(ptr(22));
+  for (int k = 0; k < 16; ++k) a.m[k] = f[k];
+  for (int k = 0; k < 24; ++k) a.planes[k] = f[16 + k];
+  a.width = f[40];
+  a.height = f[41];
+  a.min_node_size = f[42];
+  a.point_budget = f[43];
+  a.n = n;
+  a.draw_cap = draw_cap;
+  int rc = static_cast<int>(cudaMemsetAsync(a.counts, 0, 5 * sizeof(int), st));
+  if (rc != 0) return rc;
+  visibility<<<blocks_for(n), THREADS, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// plan_blocks: `ptrs` is a host array of 12 device pointers (off, cnt, mask,
+// index, scratch, src_row, pstart, pend, r_ok, sr, mpos, count; mask and
+// index may be null); scratch holds S + 2 nb + 1 ints, nb = ceil(S / 1024).
+// Three launches: the block scan, the scan of block sums, the fill.
+extern "C" int simlod_plan_blocks(const void* ptrs, int S, int mask_len, int out_len,
+                                  void* stream) {
+  if (S < 1 || out_len < 0 || out_len % A != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* p = static_cast<const long long*>(ptrs);
+  auto ptr = [&](int k) { return reinterpret_cast<void*>(p[k]); };
+  PlanArgs a{};
+  a.off = static_cast<const int*>(ptr(0));
+  a.cnt = static_cast<const int*>(ptr(1));
+  a.mask = static_cast<const bool*>(ptr(2));
+  a.index = static_cast<const int*>(ptr(3));
+  a.S = S;
+  a.mask_len = mask_len;
+  a.WR = out_len / A;
+  a.out_len = out_len;
+  a.nb = (S + SCAN - 1) / SCAN;
+  int* scratch = static_cast<int*>(ptr(4));
+  a.local = scratch;
+  a.bsum = scratch + S;
+  a.total = scratch + S + 2 * a.nb;
+  a.src_row = static_cast<int*>(ptr(5));
+  a.pstart = static_cast<int*>(ptr(6));
+  a.pend = static_cast<int*>(ptr(7));
+  a.r_ok = static_cast<bool*>(ptr(8));
+  a.sr = static_cast<int*>(ptr(9));
+  a.mpos = static_cast<int*>(ptr(10));
+  a.count = static_cast<int*>(ptr(11));
+  int rc;
+  plan_scan<<<a.nb, SCAN, 0, st>>>(a);
+  if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
+  plan_scan_sums<<<1, SCAN, 0, st>>>(a);
+  if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
+  plan_fill<<<blocks_for(S), THREADS, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// edl: color, depth bits and out are [width * height] int32 on the device;
+// one launch.
+extern "C" int simlod_edl(const void* color, const void* depth, int width, int height,
+                          float strength, void* out, void* stream) {
+  if (width < 1 || height < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  edl<<<blocks_for(static_cast<long long>(width) * height), THREADS, 0, st>>>(
+      static_cast<const int*>(color), static_cast<const int*>(depth), width, height, strength,
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -43,18 +43,17 @@ from .render.render import (FrameStats, probe_pooled_counts, render_frame,
                             render_frame_pooled)
 
 
-def _collect_stats(cfg: EngineConfig, state: OctreeState,
-                   fstats: FrameStats | None) -> Stats:
-    """Engine counters as Python values (one device read for all of them).
-    num_points counts points stored in leaves (the JAX package's definition);
-    num_points_dropped sits beside it."""
+def _stat_tensors(state: OctreeState, fstats: FrameStats | None) -> dict:
+    """The engine counters of Stats as 0-d device tensors (num_points counts
+    points stored in leaves, the JAX package's definition; num_points_dropped
+    sits beside it)."""
     n_cap = state.child_base.shape[0]
     ids = torch.arange(n_cap, dtype=torch.int32, device=state.device)
     active = ids < state.num_nodes
     leaf = active & (state.child_base < 0)
     i32 = lambda b: b.sum(dtype=torch.int32)
     zero = torch.zeros((), dtype=torch.int32, device=state.device)
-    vals = dict(
+    return dict(
         num_nodes=state.num_nodes,
         num_inner=i32(active & ~leaf),
         num_leaves=i32(leaf),
@@ -77,11 +76,44 @@ def _collect_stats(cfg: EngineConfig, state: OctreeState,
         mem_capacity_reached=state.mem_capacity_reached,
         render_truncated=fstats.truncated if fstats else zero.bool(),
     )
-    host = torch.stack([v.to(torch.int64) for v in vals.values()]).tolist()
-    out = dict(zip(vals, host))
+
+
+def _to_stats(values: dict) -> Stats:
+    """Stats from the host values of _stat_tensors."""
+    out = dict(values)
     for k in ("mem_capacity_reached", "render_truncated"):
         out[k] = bool(out[k])
     return Stats(**out)
+
+
+def _collect_stats(cfg: EngineConfig, state: OctreeState,
+                   fstats: FrameStats | None) -> Stats:
+    """Engine counters as Python values (one device read for all of them)."""
+    vals = _stat_tensors(state, fstats)
+    return _to_stats(dict(zip(vals, _stack(vals.values()).tolist())))
+
+
+def _stack(tensors) -> torch.Tensor:
+    """0-d device integers and bools in one int32 tensor (int64 where one
+    is int64), so that one read fetches them all."""
+    tensors = list(tensors)
+    dt = torch.int64 if any(t.dtype == torch.int64 for t in tensors) \
+        else torch.int32
+    return torch.stack([t.to(dt) for t in tensors])
+
+
+# Engine._marks: watermark name -> state field
+_MARKS = (("processed", "num_points_processed"), ("vox_used", "vox_used"),
+          ("vox_compacted", "vox_compacted"), ("pool_used", "pool_used"),
+          ("num_nodes", "num_nodes"), ("num_segments", "num_segments"),
+          ("dropped", "num_candidates_dropped"),
+          ("mem_cap", "mem_capacity_reached"))
+
+
+def _marks_of(values: list) -> dict:
+    m = dict(zip((k for k, _ in _MARKS), values))
+    m["mem_cap"] = bool(m["mem_cap"])
+    return m
 
 
 def _fused_step(cfg: EngineConfig, state: OctreeState, width: int, height: int,
@@ -265,7 +297,7 @@ class Engine:
     def _read(self, tensors) -> list:
         """Device scalars -> Python numbers in one device read (counted)."""
         self.host_syncs += 1
-        return torch.stack([t.to(torch.int64) for t in tensors]).tolist()
+        return _stack(tensors).tolist()
 
     def _built(self, fn, *args):
         """fn(*args) (a builder call), adding its device reads to host_syncs."""
@@ -407,24 +439,23 @@ class Engine:
     def _marks(self) -> dict:
         """All host-side watermarks in one device read. Not cached: the state
         is updated in place, so the same object's watermarks change."""
-        s = self.state
-        v = self._read([s.num_points_processed, s.vox_used, s.vox_compacted,
-                        s.pool_used, s.num_nodes, s.num_segments,
-                        s.num_candidates_dropped, s.mem_capacity_reached])
-        return dict(processed=v[0], vox_used=v[1], vox_compacted=v[2],
-                    pool_used=v[3], num_nodes=v[4], num_segments=v[5],
-                    dropped=v[6], mem_cap=bool(v[7]))
+        return _marks_of(self._read([getattr(self.state, f)
+                                     for _, f in _MARKS]))
 
-    def _maybe_compact(self, force: bool = False, poll: bool = False):
+    def _maybe_compact(self, force: bool = False, poll: bool = False,
+                       marks: dict | None = None) -> dict | None:
         """Capacity poll + near-capacity voxel compaction (renders that need the
         exact voxel ranges force it). Without force or poll it acts every 4
-        steps."""
+        steps. `marks`: the watermarks as the caller read them, reused (no
+        read of its own); they are read again only after a compaction.
+        Returns the current watermarks (None where it did not act and was
+        given none)."""
         if not (force or poll) and self._steps_since_poll < 4:
-            return
+            return marks
         self._steps_since_poll = 0
-        m = self._marks()
+        m = marks if marks is not None else self._marks()
         self._capacity_flag = m["mem_cap"]
-        self._adapt_candidate_windows()
+        self._adapt_candidate_windows(m)
         threshold = int(self.cfg.voxel_capacity * self.cfg.voxel_compact_watermark)
         if force or m["vox_used"] > threshold:
             self.state = self._built(build.compact_voxels_auto, self.cfg,
@@ -435,11 +466,13 @@ class Engine:
             if m["num_segments"] > seg_limit:
                 self.state = self._built(build.compact_segments, self.cfg,
                                          self.state)
+                m = self._marks()
+        return m
 
-    def _adapt_candidate_windows(self):
+    def _adapt_candidate_windows(self, m: dict):
         """Upsize the multi-level candidate window under sustained drops (more
-        than 1% of the points ingested since the last poll; two bumps max)."""
-        m = self._marks()
+        than 1% of the points ingested since the last poll; two bumps max);
+        `m` holds the current watermarks."""
         dropped, processed = m["dropped"], m["processed"]
         d_drop = dropped - self._last_dropped
         d_proc = processed - self._last_processed
@@ -493,24 +526,29 @@ class Engine:
         self.last_windows = (pw, vw, nw, sw)
         return self.last_windows
 
-    def _note_visible(self, fstats: FrameStats):
-        vp, vv, tr = self._read([fstats.num_visible_points,
-                                 fstats.num_visible_voxels, fstats.truncated])
-        self._last_visible = (vp, vv)
-        self._last_truncated = bool(tr)
-        m = self._marks()
-        self._last_counts = (m["num_nodes"], m["num_segments"])
+    def _after_frame(self, fstats: FrameStats):
+        """One device read after a frame: its visible counts and truncation,
+        the engine counters and the watermarks -> (Stats, watermarks); notes
+        what the next frame's windows are sized from."""
+        vals = _stat_tensors(self.state, fstats)
+        host = self._read([*vals.values(),
+                           *(getattr(self.state, f) for _, f in _MARKS)])
+        stats = _to_stats(dict(zip(vals, host)))
+        self._last_visible = (stats.num_visible_points,
+                              stats.num_visible_voxels)
+        self._last_truncated = stats.render_truncated
+        self._last_counts = (stats.num_nodes, stats.num_segments)
+        return stats, _marks_of(host[len(vals):])
 
     def _stats(self, fstats: FrameStats | None) -> Stats:
         self.host_syncs += 1
         return _collect_stats(self.cfg, self.state, fstats)
 
     # --- draw pool (screen-budgeted decimation, render/drawpool.py) ---
-    def _ensure_draw_pool(self) -> None:
+    def _ensure_draw_pool(self, m: dict) -> None:
         """(Re)build the draw pool when the octree changed since the last
         build. Callers have already compacted (the pool reads the exact voxel
-        ranges)."""
-        m = self._marks()
+        ranges) and pass the watermarks `m` they read since."""
         key = (m["processed"], m["num_nodes"], m["vox_compacted"])
         if self._draw_pool is not None and self._pool_key == key:
             return
@@ -553,32 +591,33 @@ class Engine:
             self._pool_ws_age = 0
         return ws
 
-    def _ensure_stream_pool(self) -> bool:
+    def _ensure_stream_pool(self):
         """Draw-pool rebuild policy of the simultaneous loop: rebuild when the
         pool is missing, or when more than a quarter of the processed points
         (and at least one step) postdate it AND at most a quarter of wall-clock
         time goes to rebuilds (a rebuild is a forced compaction + a sort of the
         whole point pool). Nodes the pool misses render exactly meanwhile.
-        Returns True when a rebuild happened."""
+        Returns (whether a rebuild happened, the current watermarks)."""
         m = self._marks()
         pts = m["processed"]
         built = self._pool_built_pts
         if self._draw_pool is not None and built >= 0:
             if pts - built <= max(built // 4, self.cfg.step_points):
-                return False
+                return False, m
             if time.perf_counter() - self._pool_rebuild_t \
                     < 4.0 * self._pool_rebuild_cost:
-                return False
+                return False, m
         t0 = time.perf_counter()
         # the pool reads the exact voxel ranges: fold in tail appends first
-        self._maybe_compact(force=m["vox_used"] > m["vox_compacted"])
-        self._ensure_draw_pool()
+        m = self._maybe_compact(force=m["vox_used"] > m["vox_compacted"],
+                                marks=m)
+        self._ensure_draw_pool(m)
         self._sync()
         self._pool_rebuild_cost = time.perf_counter() - t0
         self._pool_rebuild_t = time.perf_counter()
         self._pool_built_pts = pts
         self.t_pool.add(self._pool_rebuild_cost)
-        return True
+        return True, m
 
     def _pooled_args(self, u: Uniforms, force: bool, m: dict):
         """(pool_pw, pool_vw, exact_pw, exact_vw, node_window, seg_window) of a
@@ -591,16 +630,18 @@ class Engine:
 
     def render(self, width: int, height: int):
         """Render-only frame -> (image i32 [H, W] (u32 abgr bits), Stats);
-        through the draw pool when settings.point_budget > 0."""
+        through the draw pool when settings.point_budget > 0. Two device
+        reads (the watermarks before, the counters after), more only after a
+        compaction, a pool rebuild or a window re-probe."""
         # an exact voxel CSR needs every tail append folded in
         m = self._marks()
-        self._maybe_compact(force=m["vox_used"] > m["vox_compacted"])
-        m = self._marks()
+        m = self._maybe_compact(force=m["vox_used"] > m["vox_compacted"],
+                                marks=m)
         u = self.uniforms(width, height)
         t0 = time.perf_counter()
         if self.settings.point_budget > 0:
             key_before = self._pool_key
-            self._ensure_draw_pool()
+            self._ensure_draw_pool(m)
             args = self._pooled_args(u, self._pool_key != key_before, m)
             img, fstats = render_frame_pooled(self.cfg, self.state,
                                               self._draw_pool, width, height,
@@ -610,9 +651,9 @@ class Engine:
                                        *self._windows())
         self._sync()
         self.t_render.add(time.perf_counter() - t0)
-        self._note_visible(fstats)
+        stats, _ = self._after_frame(fstats)
         self.frames += 1
-        return img, self._stats(fstats)
+        return img, stats
 
     def frame(self, width: int, height: int):
         """One simultaneous frame: ingest + render (the reference's per-frame
@@ -647,8 +688,8 @@ class Engine:
         bx, by, bz, bc, counts = items[-1]
         if self.settings.point_budget > 0:
             # a one-step item rides as a K=1 chunk, through build_many
-            rebuilt = self._ensure_stream_pool()
-            args = self._pooled_args(u, rebuilt, self._marks())
+            rebuilt, m = self._ensure_stream_pool()
+            args = self._pooled_args(u, rebuilt, m)
             self.state, img, fstats = self._built(
                 _fused_chunk_pooled, self.cfg, self.state, width, height, bx,
                 by, bz, bc, counts, *args, self._draw_pool, u)
@@ -669,12 +710,18 @@ class Engine:
         dt = time.perf_counter() - t0
         self.t_fused.add(dt)
         self._adapt_budget(dt * 1e3, len(items))
-        self._note_visible(fstats)
-        self._maybe_compact()
+        stats, m = self._after_frame(fstats)
+        # _maybe_compact hands the caller's watermarks back unless it
+        # compacted
+        changed = self._maybe_compact(marks=m) is not m
         if self.last_batch_finished:
+            changed |= not self._splits_finished
             self._end_of_stream()
         self.frames += 1
-        return img, self._stats(fstats)
+        if changed:
+            # the state changed after the frame: count it again
+            stats = self._stats(fstats)
+        return img, stats
 
     def _adapt_budget(self, frame_ms: float, consumed: int):
         """Grow/shrink batches-per-frame toward settings.frame_budget_ms, one

@@ -101,6 +101,24 @@ def build() -> Path:
     return out
 
 
+def data_ptr(t, where: str, what: str, dtype, device, shape=None) -> int:
+    """The device pointer of argument `what` of the kernel wrapper `where`;
+    raises ValueError unless `t` is a contiguous CUDA tensor of `dtype` (and
+    `shape`, when given) on `device`: a wrapper has no CPU fallback (its plain
+    version `<name>_reference` takes CPU tensors)."""
+    if not t.is_cuda:
+        raise ValueError(f"{where}: {what} is on {t.device}; the kernel takes "
+                         "CUDA tensors (its plain version takes the others)")
+    if t.device != device:
+        raise ValueError(f"{where}: {what} is on {t.device}, not {device}")
+    if t.dtype != dtype or not t.is_contiguous() \
+            or (shape is not None and tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{where}: {what} must be a contiguous {dtype}"
+                         + (f" of shape {tuple(shape)}" if shape is not None
+                            else ""))
+    return t.data_ptr()
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built if needed, with every entry point's signature
     declared."""
@@ -116,5 +134,11 @@ def load() -> ctypes.CDLL:
             lib.simlod_splat_samples.argtypes = [p, i, p, p, p, p, p, i, i, i,
                                                  i, p, p, p, p, p]
             lib.simlod_splat_samples.restype = i
+            lib.simlod_visibility.argtypes = [p, p, i, i, p]
+            lib.simlod_visibility.restype = i
+            lib.simlod_plan_blocks.argtypes = [p, i, i, i, p]
+            lib.simlod_plan_blocks.restype = i
+            lib.simlod_edl.argtypes = [p, p, i, i, ctypes.c_float, p, p]
+            lib.simlod_edl.restype = i
             _lib = lib
         return _lib

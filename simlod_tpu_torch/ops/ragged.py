@@ -11,13 +11,18 @@ plain element gather through the plan's source indices.
 `expand` its element-wise form: block r of the window is one aligned 128-row
 run of the pool, so a kernel can read a block's rows straight from the pool
 columns (csrc/raster_splat.cu) without the window-sized tensors.
+`plan_blocks` takes the CUDA kernel csrc/frame.cu (`plan_blocks_cuda`) for
+CUDA tensors and its plain PyTorch version `plan_blocks_reference` for CPU
+tensors; both take the frame's selection of segments as a mask.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from .segments import exclusive_cumsum, iota
 
 A = 128  # window block (alignment unit of the layout)
@@ -44,15 +49,44 @@ class BlockPlan(NamedTuple):
     sr: torch.Tensor        # [WR] i32 segment id (clamped >= 0)
     mpos: torch.Tensor      # [S] as RaggedPlan.mpos
     out_len: int
+    count: torch.Tensor     # i32: min(sum of the selected counts, out_len)
 
 
-def plan_blocks(src_off: torch.Tensor, cnt: torch.Tensor,
-                out_len: int) -> BlockPlan:
-    """Per-block gather plan for segments (src_off[i], cnt[i]);
-    out_len % 128 == 0."""
+def plan_blocks(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int,
+                mask: torch.Tensor | None = None,
+                index: torch.Tensor | None = None) -> BlockPlan:
+    """Per-block gather plan for the selected segments (src_off[i], cnt[i]);
+    out_len % 128 == 0. Without `mask` every segment is selected; with it
+    segment i is selected where mask[i] (index None) or, with `index`, where
+    cnt[i] > 0, index[i] >= 0 and mask[clamp(index[i], 0, len(mask) - 1)]
+    (a node mask seen through each segment's node); an unselected segment
+    counts 0. The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    impl = plan_blocks_cuda if src_off.is_cuda else plan_blocks_reference
+    return impl(src_off, cnt, out_len, mask, index)
+
+
+def _select(cnt, mask, index):
+    """The selected segments' counts (0 where unselected)."""
+    if mask is None:
+        return cnt
+    if index is None:
+        ok = mask
+    else:
+        ok = (cnt > 0) & (index >= 0) \
+            & mask[index.clamp(0, mask.shape[0] - 1).long()]
+    return torch.where(ok, cnt, torch.zeros((), dtype=cnt.dtype,
+                                            device=cnt.device))
+
+
+def plan_blocks_reference(src_off: torch.Tensor, cnt: torch.Tensor,
+                          out_len: int, mask: torch.Tensor | None = None,
+                          index: torch.Tensor | None = None) -> BlockPlan:
+    """Plain PyTorch version of the plan_blocks kernel."""
     assert out_len % A == 0
     dev = src_off.device
     S = src_off.shape[0]
+    cnt = _select(cnt, mask, index)
     nz = cnt > 0
     zero = torch.zeros_like(src_off)
     row0 = torch.where(nz, torch.div(src_off, A, rounding_mode="floor"), zero)
@@ -74,7 +108,78 @@ def plan_blocks(src_off: torch.Tensor, cnt: torch.Tensor,
     pend_r = pstart_r + cnt[at]
     mpos = torch.where(nz, row_offs * A + phase, out_len)
     return BlockPlan(src_row=src_row, pstart_r=pstart_r, pend_r=pend_r,
-                     r_ok=r_ok, sr=sr, mpos=mpos, out_len=out_len)
+                     r_ok=r_ok, sr=sr, mpos=mpos, out_len=out_len,
+                     count=torch.clamp(cnt.sum(dtype=torch.int32),
+                                       max=out_len))
+
+
+def plan_blocks_cuda(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int,
+                     mask: torch.Tensor | None = None,
+                     index: torch.Tensor | None = None) -> BlockPlan:
+    """The CUDA kernel csrc/frame.cu (`simlod_plan_blocks`) on CUDA tensors;
+    raises for anything else. Same arguments and result as
+    plan_blocks_reference, bit for bit, the rows past the last segment
+    included (they take segment S - 1's values with r_ok false, as
+    searchsorted puts them there).
+
+    It replaces the plain version's ~20 launches (masking, cumsum,
+    searchsorted, WR-sized gathers), which XLA fuses in the JAX package's
+    jitted frame (ragged.plan, simlod_tpu/ops/ragged.py:46), with three: a
+    block scan of the segments' row counts and selected counts, one block's
+    scan of the block sums, and a fill in which each warp writes its 32
+    segments' rows. Bound by memory: 8-13 B read a segment, 17 B written a
+    window block and 4 B a segment. Each call adds one to
+    `plan_blocks_cuda.launches`."""
+    if out_len % A != 0 or out_len < 0:
+        raise ValueError(f"plan_blocks_cuda: out_len {out_len} is not a "
+                         "multiple of 128")
+    dev = src_off.device
+    S = src_off.shape[0]
+    if not 0 < S < (1 << 31) or out_len >= (1 << 31):
+        raise ValueError("plan_blocks_cuda: 1 <= S and out_len < 2^31")
+    i32 = torch.int32
+    arg = lambda t, what, dtype, shape=None: kernels.data_ptr(
+        t, "plan_blocks_cuda", what, dtype, dev, shape)
+    ptrs = [arg(src_off, "src_off", i32, (S,)), arg(cnt, "cnt", i32, (S,))]
+    mask_len = 0
+    if mask is None:
+        ptrs += [0, 0]
+    else:
+        mask_len = mask.shape[0] if mask.ndim == 1 else 0
+        if mask_len < 1:
+            raise ValueError("plan_blocks_cuda: mask must be a non-empty "
+                             "1-D bool tensor")
+        ptrs += [arg(mask, "mask", torch.bool),
+                 0 if index is None else arg(index, "index", i32, (S,))]
+        if index is None and mask_len != S:
+            raise ValueError("plan_blocks_cuda: mask must have S entries "
+                             "without index")
+    WR = out_len // A
+    nb = -(-S // 1024)
+    scratch = torch.empty(S + 2 * nb + 1, dtype=i32, device=dev)
+    rows = [torch.empty(WR, dtype=i32, device=dev) for _ in range(3)]
+    r_ok = torch.empty(WR, dtype=torch.bool, device=dev)
+    sr = torch.empty(WR, dtype=i32, device=dev)
+    mpos = torch.empty(S, dtype=i32, device=dev)
+    count = torch.empty((), dtype=i32, device=dev)
+    ptrs += [scratch.data_ptr(), *(t.data_ptr() for t in rows),
+             r_ok.data_ptr(), sr.data_ptr(), mpos.data_ptr(),
+             count.data_ptr()]
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.simlod_plan_blocks((ctypes.c_int64 * len(ptrs))(*ptrs), S,
+                                    mask_len, out_len, stream)
+    if rc != 0:
+        raise RuntimeError(f"plan_blocks_cuda: kernel launch failed "
+                           f"(cudaError {rc})")
+    plan_blocks_cuda.launches += 1
+    return BlockPlan(src_row=rows[0], pstart_r=rows[1], pend_r=rows[2],
+                     r_ok=r_ok, sr=sr, mpos=mpos, out_len=out_len,
+                     count=count)
+
+
+plan_blocks_cuda.launches = 0
 
 
 def expand(bp: BlockPlan) -> RaggedPlan:

@@ -213,26 +213,25 @@ def _pool_take(mask, stored_cnt, budgets):
 
 def _prefix_plan(off, cnt, take, window: int):
     """Block plan of each node's first `take` pooled rows in a window of
-    (window // 128) * 128 rows; returns (plan, samples in the window)."""
+    (window // 128) * 128 rows (its `count`: the samples in the window)."""
     N = off.shape[0]
     take = torch.minimum(take[:N], cnt)
     W = (window // 128) * 128
-    return (ragged.plan_blocks(torch.where(take > 0, off, 0), take, W),
-            torch.clamp(take.sum(dtype=torch.int32), max=W))
+    return ragged.plan_blocks(off, take, W)
 
 
 def gather_pool_points(cfg: EngineConfig, state: OctreeState, pool: DrawPool,
                        take: torch.Tensor, window: int):
     """Budgeted prefix of pooled leaf points -> raster.SampleSource (hash
     order makes each prefix a deterministic uniform subsample)."""
-    p, count = _prefix_plan(pool.pt_off, pool.pt_cnt, take, window)
+    p = _prefix_plan(pool.pt_off, pool.pt_cnt, take, window)
     return raster.point_source(state, p, pool.p_w0, pool.p_w1, pool.p_w2,
-                               pool.p_rgba, None, count)
+                               pool.p_rgba, None, p.count)
 
 
 def gather_pool_voxels(cfg: EngineConfig, state: OctreeState, pool: DrawPool,
                        take: torch.Tensor, window: int):
     """Budgeted prefix of pooled inner-node voxels -> raster.SampleSource."""
-    p, count = _prefix_plan(pool.vx_off, pool.vx_cnt, take, window)
+    p = _prefix_plan(pool.vx_off, pool.vx_cnt, take, window)
     return raster.voxel_source(state, p, pool.v_k0, pool.v_k1, pool.v_k2l,
-                               pool.v_rgba, count)
+                               pool.v_rgba, p.count)

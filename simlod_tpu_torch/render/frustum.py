@@ -5,6 +5,7 @@ positive-vertex AABB test (reference math.cuh:154-199).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,6 +29,23 @@ def frustum_planes(m: torch.Tensor) -> torch.Tensor:
     x, y, z = planes[:, 0], planes[:, 1], planes[:, 2]
     n = torch.sqrt(fma(z, z, fma(y, y, x * x)))[:, None]
     return planes / torch.clamp(n, min=1e-30)
+
+
+def frustum_planes_host(m) -> np.ndarray:
+    """frustum_planes on the host: float32 [6, 4] numpy, bit-equal to the
+    device version (every step is one IEEE-rounded float32 op, the norm's
+    fused multiply-adds emulated in float64 as there). The visibility kernel
+    takes these planes by value."""
+    m = np.asarray(m, np.float32).reshape(4, 4)
+    planes = np.stack([m[3] - m[0], m[3] + m[0], m[3] + m[1],
+                       m[3] - m[1], m[3] - m[2], m[3] + m[2]])
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(np.float32)
+
+    x, y, z = planes[:, 0], planes[:, 1], planes[:, 2]
+    n = np.sqrt(fma(z, z, fma(y, y, x * x)))[:, None]
+    return planes / np.maximum(n, np.float32(1e-30))
 
 
 def intersects_frustum_cols(planes, mnx, mny, mnz, mxx, mxy, mxz):

@@ -181,17 +181,11 @@ def pooled_frame_samples(cfg: EngineConfig, state: OctreeState,
         over = over | (state.num_segments > seg_window)
     state = _trim_directories(state, node_window, seg_window)
     pool = _trim_pool(pool, node_window)
-    vis = visibility.compute_visibility(state, uniforms)
-    budgets = drawpool.node_budgets(cfg, vis, uniforms)
-    m_pp, m_ep, m_pv, m_ev = drawpool.split_masks(cfg, state, vis, pool)
-    pp = drawpool.gather_pool_points(
-        cfg, state, pool, drawpool._pool_take(m_pp, pool.pt_cnt, budgets),
-        pool_pw)
-    pv = drawpool.gather_pool_voxels(
-        cfg, state, pool, drawpool._pool_take(m_pv, pool.vx_cnt, budgets),
-        pool_vw)
-    ep = raster.gather_point_samples(cfg, state, m_ep, exact_pw)
-    ev = raster.gather_voxel_samples(cfg, state, m_ev, exact_vw)
+    vis = visibility.compute_visibility(state, uniforms, pool, cfg)
+    pp = drawpool.gather_pool_points(cfg, state, pool, vis.take_p, pool_pw)
+    pv = drawpool.gather_pool_voxels(cfg, state, pool, vis.take_v, pool_vw)
+    ep = raster.gather_point_samples(cfg, state, vis.exact_p, exact_pw)
+    ev = raster.gather_voxel_samples(cfg, state, vis.exact_v, exact_vw)
     sets = [s._replace(show=uniforms.show_points) for s in (pp, pv, ep, ev)]
     # any sample set reaching its window dropped drawn samples (>=, where the
     # exact path's test is >: the JAX package's two tests)
@@ -249,12 +243,8 @@ def probe_pooled_counts(cfg: EngineConfig, state: OctreeState,
     of the pooled path, as 0-d int32 tensors: the pooled counts are the exact
     128-row blocks the budgeted prefix plans fetch, the exact counts add 256
     rows of phase padding per node."""
-    vis = visibility.compute_visibility(state, uniforms)
-    budgets = drawpool.node_budgets(cfg, vis, uniforms)
-    m_pp, m_ep, m_pv, m_ev = drawpool.split_masks(cfg, state, vis, pool)
-    n = pool.pt_cnt.shape[0]
-    tp = drawpool._pool_take(m_pp[:n], pool.pt_cnt, budgets[:n])
-    tv = drawpool._pool_take(m_pv[:n], pool.vx_cnt, budgets[:n])
+    vis = visibility.compute_visibility(state, uniforms, pool, cfg)
+    tp, tv, m_ep, m_ev = vis.take_p, vis.take_v, vis.exact_p, vis.exact_v
     rp = torch.where(tp > 0, torch.div(pool.pt_off % 128 + tp + 127, 128,
                                        rounding_mode="floor"), 0)
     rv = torch.where(tv > 0, torch.div(pool.vx_off % 128 + tv + 127, 128,

@@ -4,16 +4,24 @@ render.cu:690-934), one dense pass over the node columns.
 
   node emitted  <=>  (parent.isLarge and not node.isLarge and node.visible)
                  or  (node.isLarge and node.isLeaf and node.visible)
+
+`compute_visibility` takes the CUDA kernel csrc/frame.cu (`visibility`,
+`compute_visibility_cuda`) for CUDA tensors and its plain PyTorch version
+`compute_visibility_reference` for CPU tensors. With a draw pool both also
+return the pooled frame's per-node takes and exact masks
+(render/drawpool.py node_budgets, split_masks, _pool_take).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
-from ..config import Uniforms
+from .. import kernels
+from ..config import EngineConfig, Uniforms
 from ..octree.structures import OctreeState
-from . import frustum
+from . import drawpool, frustum
 
 
 class Visibility(NamedTuple):
@@ -27,9 +35,29 @@ class Visibility(NamedTuple):
     num_visible_leaves: torch.Tensor
     num_visible_points: torch.Tensor
     num_visible_voxels: torch.Tensor
+    # with a draw pool: the pooled frame's per-node takes (drawpool._pool_take
+    # of the split masks and budgets) and exact-path masks
+    take_p: torch.Tensor | None = None   # [N] i32
+    take_v: torch.Tensor | None = None   # [N] i32
+    exact_p: torch.Tensor | None = None  # [N] bool
+    exact_v: torch.Tensor | None = None  # [N] bool
 
 
-def compute_visibility(state: OctreeState, uniforms: Uniforms) -> Visibility:
+def compute_visibility(state: OctreeState, uniforms: Uniforms, pool=None,
+                       cfg: EngineConfig | None = None) -> Visibility:
+    """LOD selection of one frame over the node columns of `state` (a
+    trimmed directory is a view with shorter node columns); with a draw pool
+    (and cfg for its draw_cap) also the pooled frame's takes and exact masks.
+    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    impl = compute_visibility_cuda if state.child_base.is_cuda \
+        else compute_visibility_reference
+    return impl(state, uniforms, pool, cfg)
+
+
+def compute_visibility_reference(state: OctreeState, uniforms: Uniforms,
+                                 pool=None, cfg: EngineConfig | None = None
+                                 ) -> Visibility:
+    """Plain PyTorch version of the visibility kernel."""
     n_cap = state.child_base.shape[0]
     dev = state.child_base.device
     ids = torch.arange(n_cap, dtype=torch.int32, device=dev)
@@ -86,7 +114,7 @@ def compute_visibility(state: OctreeState, uniforms: Uniforms) -> Visibility:
     leafish = emitted & (state.num_points > 0)
     innerish = emitted & (state.num_points == 0) & (state.num_voxels > 0)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    return Visibility(
+    vis = Visibility(
         emitted=emitted, visible=visible, is_large=is_large, dx=dx, dy=dy,
         num_visible_nodes=asz(emitted),
         num_visible_inner=asz(innerish),
@@ -96,3 +124,88 @@ def compute_visibility(state: OctreeState, uniforms: Uniforms) -> Visibility:
         num_visible_voxels=torch.where(innerish, state.num_voxels, zero)
         .sum(dtype=torch.int32),
     )
+    if pool is None:
+        return vis
+    budgets = drawpool.node_budgets(cfg, vis, uniforms)
+    m_pp, m_ep, m_pv, m_ev = drawpool.split_masks(cfg, state, vis, pool)
+    return vis._replace(
+        take_p=drawpool._pool_take(m_pp, pool.pt_cnt, budgets),
+        take_v=drawpool._pool_take(m_pv, pool.vx_cnt, budgets),
+        exact_p=m_ep, exact_v=m_ev)
+
+
+# node columns the kernel reads, in the order of csrc/frame.cu's VisArgs
+_NODE_COLUMNS = ("nx", "ny", "nz", "level", "parent", "child_base",
+                 "num_points", "num_voxels")
+
+
+def compute_visibility_cuda(state: OctreeState, uniforms: Uniforms,
+                            pool=None, cfg: EngineConfig | None = None
+                            ) -> Visibility:
+    """The CUDA kernel csrc/frame.cu (`simlod_visibility`) on a state of
+    CUDA tensors; raises for anything else. Same arguments and result as
+    compute_visibility_reference, bit for bit (dx, dy as bit patterns: NaN
+    where a corner lies on the eye plane, as there).
+
+    It replaces the ~300 torch launches of the plain version (8 corners x
+    ~30 elementwise ops, the frustum test, the parent gather, five sums, and
+    with a pool the budgets, masks and takes) that XLA fuses in the JAX
+    package's jitted frame (simlod_tpu/render/visibility.py:42): one thread
+    per node slot, bound by memory (32 B read a node, 11 B written; with a
+    pool 8 B more read and 10 B more written). The frame's scalars and the
+    frustum planes (computed on the host, frustum.frustum_planes_host) come
+    by value, num_nodes through a pointer: no host read. Each call adds one
+    to `compute_visibility_cuda.launches`."""
+    dev = state.child_base.device
+    n = state.child_base.shape[0]
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    arg = lambda t, what, dtype, shape: kernels.data_ptr(
+        t, "compute_visibility_cuda", what, dtype, dev, shape)
+    ptrs = [arg(getattr(state, f), f, i32, (n,)) for f in _NODE_COLUMNS]
+    ptrs += [arg(state.num_nodes, "num_nodes", i32, ()),
+             arg(state.box_min, "box_min", f32, (3,)),
+             arg(state.cube_size, "cube_size", f32, ())]
+    out = dict(emitted=torch.empty(n, dtype=b8, device=dev),
+               visible=torch.empty(n, dtype=b8, device=dev),
+               is_large=torch.empty(n, dtype=b8, device=dev),
+               dx=torch.empty(n, dtype=f32, device=dev),
+               dy=torch.empty(n, dtype=f32, device=dev))
+    counts = torch.empty(5, dtype=i32, device=dev)
+    pool_cnts, extra = [0, 0], {}
+    if pool is not None:
+        if cfg is None:
+            raise ValueError("compute_visibility_cuda: a pool needs cfg "
+                             "(its draw_cap)")
+        pool_cnts = [arg(pool.pt_cnt, "pool.pt_cnt", i32, (n,)),
+                     arg(pool.vx_cnt, "pool.vx_cnt", i32, (n,))]
+        extra = dict(take_p=torch.empty(n, dtype=i32, device=dev),
+                     take_v=torch.empty(n, dtype=i32, device=dev),
+                     exact_p=torch.empty(n, dtype=b8, device=dev),
+                     exact_v=torch.empty(n, dtype=b8, device=dev))
+    ptrs += pool_cnts + [t.data_ptr() for t in out.values()] \
+        + [counts.data_ptr()] + ([t.data_ptr() for t in extra.values()]
+                                 or [0] * 4)
+    h = uniforms.host
+    floats = (*h.transform_update_bound,
+              *frustum.frustum_planes_host(h.transform_update_bound)
+              .reshape(-1).tolist(),
+              h.width, h.height, h.min_node_size, h.point_budget)
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.simlod_visibility(
+            (ctypes.c_int64 * len(ptrs))(*ptrs),
+            (ctypes.c_float * len(floats))(*floats), n,
+            cfg.draw_cap if cfg is not None else 0, stream)
+    if rc != 0:
+        raise RuntimeError("compute_visibility_cuda: kernel launch failed "
+                           f"(cudaError {rc})")
+    compute_visibility_cuda.launches += 1
+    return Visibility(**out, num_visible_nodes=counts[0],
+                      num_visible_inner=counts[1],
+                      num_visible_leaves=counts[2],
+                      num_visible_points=counts[3],
+                      num_visible_voxels=counts[4], **extra)
+
+
+compute_visibility_cuda.launches = 0

@@ -1,8 +1,9 @@
 """Properties of the port itself: it never imports jax, its kernel wrappers have
-no CPU fallback, and (on a card, marker `cuda`) the CUDA tile, splat and
-splat_samples kernels are bit-equal to their plain PyTorch versions. On a machine with a card, run the card
-tests with `python -m pytest tests/test_torch_port.py -m cuda`;
-chip_smoke.py runs the same comparison at the main path's shapes."""
+no CPU fallback, and (on a card, marker `cuda`) the CUDA tile, splat,
+splat_samples, visibility, plan_blocks and edl kernels are bit-equal to their
+plain PyTorch versions. On a machine with a card, run the card tests with
+`python -m pytest tests/test_torch_port.py -m cuda --noconftest`;
+chip_smoke.py runs the same comparisons at the main path's shapes."""
 import os
 import subprocess
 import sys
@@ -333,3 +334,167 @@ def test_splat_samples_matches_plain_version(card_engine, case, hqs):
     assert torch.equal(kd, rd) and torch.equal(kc, rc)
     drawn = (kd != C.DEPTH_INF_BITS).float().mean()
     assert drawn == 0 if case == "show_points_off" else drawn > 0.01
+
+
+# the frame kernels (csrc/frame.cu) against their plain versions on the card
+
+def _eye_plane():
+    """w = z: the root's corners at z = 0 project to 0/0 and x/0 (NaN
+    extents), nodes at z < 0 lie behind the eye."""
+    return np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -0.1],
+                     [0, 0, 1, 0]], np.float32)
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooled", [False, True])
+@pytest.mark.parametrize("camera", ["orbit", "close", "eye_plane"])
+def test_visibility_kernel_matches_plain_version(card_engine, camera, pooled):
+    from simlod_tpu_torch.render import visibility
+    eng = card_engine
+    eng.settings = Settings(min_node_size=8.0,
+                            point_budget=1.0 if pooled else 0.0)
+    W, H = 160, 120
+    eng.render(W, H)          # builds the pool
+    o = eng.orbit
+    saved = o.radius
+    if camera == "close":
+        o.radius = 0.05 * o.radius
+        eng.camera.world = o.world()
+    u = eng.uniforms(W, H)
+    if camera == "eye_plane":
+        u = Uniforms.make(W, H, _eye_plane(), settings=eng.settings,
+                          device="cuda")
+    o.radius = saved
+    eng.camera.world = o.world()
+    pool = eng._draw_pool if pooled else None
+    before = visibility.compute_visibility_cuda.launches
+    got = visibility.compute_visibility_cuda(eng.state, u, pool, eng.cfg)
+    want = visibility.compute_visibility_reference(eng.state, u, pool, eng.cfg)
+    torch.cuda.synchronize()
+    assert visibility.compute_visibility_cuda.launches == before + 1
+    for f in want._fields:
+        if getattr(want, f) is None:
+            assert getattr(got, f) is None, f
+            continue
+        assert _bits_equal(getattr(got, f), getattr(want, f)), f
+    if camera == "eye_plane":
+        assert torch.isnan(got.dx).any()
+    else:
+        assert got.emitted.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_frustum_planes_match_the_card(seed):
+    """The planes the visibility kernel takes by value equal the ones its
+    plain version computes on the card, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from simlod_tpu_torch.render import frustum
+    from simlod_tpu_torch.render.camera import Camera, OrbitControls
+    rng = np.random.default_rng(seed)
+    c = Camera(width=1920, height=1080)
+    o = OrbitControls()
+    o.focus_box([0, 0, 0], rng.uniform(0.5, 100.0, 3))
+    o.yaw, o.pitch = rng.uniform(-3, 3), rng.uniform(-1.4, 1.4)
+    c.world = o.world()
+    for t in (c.transform(), _eye_plane()):
+        host = frustum.frustum_planes_host(t)
+        card = frustum.frustum_planes(torch.from_numpy(t).cuda()).cpu()
+        assert np.array_equal(host.view(np.int32), card.numpy().view(np.int32))
+
+
+def _segments(rng, S, nodes):
+    cnt = rng.integers(1, 300, S).astype(np.int32)
+    cnt[rng.random(S) < 0.25] = 0
+    cnt[rng.random(S) < 0.05] = 900
+    cnt[-3:] = 0                         # the last segments are empty
+    off = np.concatenate([[0], np.cumsum(cnt + rng.integers(0, 40, S))[:-1]])
+    node = rng.integers(0, nodes, S).astype(np.int32)
+    node[rng.random(S) < 0.1] = -1
+    return off.astype(np.int32), cnt, node
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("select", ["by_node", "per_segment", "none"])
+@pytest.mark.parametrize("S,out_len", [(100, 1 << 16), (5000, 1 << 20),
+                                       (5000, 128 * 900), (1, 128)])
+def test_plan_blocks_kernel_matches_plain_version(select, S, out_len):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    from simlod_tpu_torch.ops import ragged
+    rng = np.random.default_rng(S)
+    off, cnt, node = _segments(rng, S, 64)
+    f = lambda a: torch.from_numpy(a).cuda()
+    mask = index = None
+    if select == "by_node":
+        mask, index = f(rng.random(64) < 0.6), f(node)
+    elif select == "per_segment":
+        mask = f(rng.random(S) < 0.6)
+    before = ragged.plan_blocks_cuda.launches
+    got = ragged.plan_blocks_cuda(f(off), f(cnt), out_len, mask, index)
+    want = ragged.plan_blocks_reference(f(off), f(cnt), out_len, mask, index)
+    torch.cuda.synchronize()
+    assert ragged.plan_blocks_cuda.launches == before + 1
+    for name in ("src_row", "pstart_r", "pend_r", "r_ok", "sr", "mpos",
+                 "count"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strength", [0.4, 1.5])
+def test_edl_kernel_matches_plain_version(card_engine, strength):
+    import dataclasses
+    from simlod_tpu_torch.render.render import render_components
+    eng = card_engine
+    eng.settings = Settings(min_node_size=8.0, edl_strength=strength)
+    W, H = 160, 120
+    eng.render(W, H)
+    u = eng.uniforms(W, H)
+    color, depth, _ = render_components(eng.cfg, eng.state, W, H, u,
+                                        *eng.last_windows)
+    rng = np.random.default_rng(3)
+    d = rng.uniform(0.5, 50.0, (H, W)).astype(np.float32)
+    d[rng.random((H, W)) < 0.3] = np.inf
+    d[:, 0] = d[:, -1] = 2.0
+    cases = [(color, depth), (torch.from_numpy(rng.integers(
+        -2**31, 2**31 - 1, W * H).astype(np.int32)).cuda(),
+        torch.from_numpy(d.reshape(-1).view(np.int32)).cuda())]
+    for c, dep in cases:
+        before = raster.edl_cuda.launches
+        got = raster.edl_cuda(c, dep, u, W, H)
+        want = raster.edl_reference(c, dep, u, W, H)
+        torch.cuda.synchronize()
+        assert raster.edl_cuda.launches == before + 1
+        assert torch.equal(got, want)
+    off = dataclasses.replace(u, flags=dataclasses.replace(u.flags,
+                                                           enable_edl=False))
+    assert raster.edl(color, depth, off, W, H) is color
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [0.0, 1.0])
+def test_card_frames_launch_the_frame_kernels(card_engine, budget):
+    from simlod_tpu_torch.ops import ragged
+    from simlod_tpu_torch.render import visibility
+    eng = card_engine
+    eng.settings = Settings(min_node_size=8.0, point_budget=budget)
+    eng.render(160, 120)
+    fns = (visibility.compute_visibility_cuda, ragged.plan_blocks_cuda,
+           raster.edl_cuda, raster.splat_samples)
+    before = [f.launches for f in fns]
+    syncs = eng.host_syncs
+    img, st = eng.render(160, 120)
+    torch.cuda.synchronize()
+    n = [f.launches - b for f, b in zip(fns, before)]
+    # a pooled frame may re-probe its windows (one more visibility launch
+    # and one more read)
+    assert n[1:] == [4 if budget else 2, 1, 1] and 1 <= n[0] <= 1 + budget
+    assert 2 <= eng.host_syncs - syncs <= 2 + budget
+    assert st.num_visible_points + st.num_visible_voxels > 0

@@ -133,3 +133,25 @@ def test_sharded_frame_reads_are_counted(monkeypatch, cloud):
         assert n == eng.host_syncs - syncs > 0
     assert tuple(img.shape) == (H, W)
     assert eng.report()["num_points"] == 60_000
+
+
+@pytest.mark.parametrize("budget", [0.0, 1.0])
+def test_render_frame_reads(monkeypatch, cloud, budget):
+    """A render-only frame reads the device twice: the watermarks before it,
+    the counters after it (a pooled frame once more when it re-probes its
+    windows, every 8 frames)."""
+    eng = Engine(EngineConfig(**KW),
+                 Settings(min_node_size=8.0, point_budget=budget),
+                 device="cpu")
+    eng.open([cloud])
+    eng.load_all()
+    _look(eng)
+    eng.render(W, H)        # compacts, builds the pool, sizes the windows
+    reads = Reads(monkeypatch)
+    counts = []
+    for _ in range(8):
+        syncs = eng.host_syncs
+        n, _ = reads.over(lambda: eng.render(W, H))
+        assert n == eng.host_syncs - syncs
+        counts.append(n)
+    assert counts.count(2) >= 7 and max(counts) <= 2 + (budget > 0), counts
