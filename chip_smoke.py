@@ -5,7 +5,9 @@
 
 Phases (every one must pass; a failure raises and exits non-zero):
   1. card and build: print the card's name and power limit (nvidia-smi), build
-     the CUDA kernels from simlod_tpu_torch/csrc with nvcc, print the seconds;
+     the CUDA kernels from simlod_tpu_torch/csrc with nvcc, print the seconds
+     and the co-resident grids of the two cooperative kernels of
+     csrc/frame.cu (visibility, plan_many);
   2. small reference: a 60k-point terrain through Engine on the GPU and on the
      CPU (plain PyTorch versions of the kernels): equal counters, images within
      1 per channel of each other and of the goldens in tests/golden/; then
@@ -101,7 +103,10 @@ versions on their frames' sample sets as phase 4 does. The frame kernels of
 csrc/frame.cu (visibility, plan_blocks, edl) are held to their plain
 versions, bit for bit, on the frames of phases 4 (exact), 8 (pooled), 10
 (LAS), 13 (paged brick) and 15 (shard 0), edl also on the composites of
-phases 13 and 15, and timed there. Every kernel launch counter is zeroed
+phases 13 and 15, and timed there (the plans as the one batched call the
+frame makes; beside each, the co-resident grid, the launches per frame, a
+check that a call is one kernel and no memset, and the launch floor: the
+empty kernel simlod_noop through the same ctypes path, timed in phase 4). Every kernel launch counter is zeroed
 just before each main path (phases 3, 6, 7, 10, 11, 12, 13, 15, 16 and the
 app and viewer runs of 17) and read just after: splat_samples and the three
 frame kernels must have run on every one, the tile kernel on the tile-route
@@ -501,6 +506,32 @@ def time_ms(fn, reps: int = 20) -> float:
 TREE = ("num_nodes", "num_points", "num_points_processed")
 
 
+def queued_ms(fn, reps: int = 20):
+    """Device ms per call of fn with the host's work out of its way: CUDA
+    events around `reps` back-to-back calls that the host enqueued while a
+    spin kernel (torch.cuda._sleep) held the device, so that the device ran
+    them from its queue (the gaps between launches included). The spin is
+    doubled until the first event was still pending when the host had
+    enqueued every call; None if it never was."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    for _ in range(8):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        ahead = not a.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return a.elapsed_time(b) / reps
+        cycles *= 2
+    return None
+
+
 def drawn_mask(img, C):
     """Pixels that are not background."""
     rgb = img.cpu().numpy().view("uint32") & 0xFFFFFF
@@ -633,10 +664,14 @@ def device_profile(render, what: str, card: str, reps: int = 3):
         say(f"profile, {what}: torch.profiler recorded no device time (not "
             f"measured); card: {card}")
         return None
+    per = lambda key: sum(
+        key in e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / reps
     say(f"profile, {what}: device busy {busy / reps / 1e3:.2f} ms per frame, "
         f"idle {1 - busy / wall_us:.1%} of {wall_us / reps / 1e3:.2f} ms "
         f"profiled wall per frame, {len(spans) / reps:.0f} device kernels and "
-        f"copies per frame; card: {card}")
+        f"copies per frame (plan kernels {per('plan_'):.0f}, visibility "
+        f"{per('visibility'):.0f}, memsets {per('Memset'):.0f}); card: {card}")
     return busy / reps / 1e3, 1 - busy / wall_us, len(spans) / reps
 
 
@@ -667,7 +702,7 @@ def _splat_vs_plain(cfg, u, sets, what, card, cols, mode, npx):
           f"splat_resolve != plain version ({what}, max err {err})")
     ms = time_ms(lambda: raster.splat_resolve(*cols, mode, npx))
     dev_ms = kernel_device_ms(lambda: raster.splat_resolve(*cols, mode, npx),
-                              "splat_")
+                              "splat_", per_call=4)
     plain_ms = time_ms(lambda: raster.splat_resolve_reference(*cols, mode,
                                                               npx))
     stage = time_ms(lambda: raster.splat_resolve(
@@ -690,11 +725,13 @@ def _splat_vs_plain(cfg, u, sets, what, card, cols, mode, npx):
     return err, ms, plain_ms, bound, stage, tile_stage, dev_ms
 
 
-def kernel_device_ms(fn, name: str, reps: int = 10):
+def kernel_device_ms(fn, name: str, per_call: int = 1, reps: int = 10):
     """Device ms per call of fn spent in the kernels whose name contains
-    `name` (torch.profiler, after a warm-up): a kernel's own time, where
-    CUDA events around back-to-back calls time its wrapper's host work when
-    that is longer. None where the profiler recorded no such kernel."""
+    `name` (torch.profiler, after a warm-up), fn launching `per_call` of
+    them a call: a kernel's own time, where CUDA events around back-to-back
+    calls time its wrapper's host work when that is longer. None (not
+    measured) unless the profiler recorded all reps x per_call launches: it
+    may miss some of those it traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -704,10 +741,49 @@ def kernel_device_ms(fn, name: str, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.name)
-    return us / reps / 1e3 if us > 0 else None
+             and name in e.name]
+    if len(spans) != reps * per_call:
+        say(f"torch.profiler recorded {len(spans)} of the {reps * per_call} "
+            f"launches of {name!r} kernels: their device time is not measured")
+        return None
+    return sum(spans) / reps / 1e3
+
+
+def device_ops(fn, reps: int = 5) -> dict:
+    """Device operations (kernels, memsets, copies) per call of fn, by
+    name, from torch.profiler after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ops[e.name] = ops.get(e.name, 0) + 1 / reps
+    return ops
+
+
+def one_launch(fn, kernel: str, what: str) -> str:
+    """Checks that a call of fn launches the kernel whose name contains
+    `kernel` at most once and no other device operation (no memset, no
+    copy), as far as torch.profiler recorded them; returns its description
+    for the printed line: "not measured" where it recorded fewer than one
+    launch a call (it may miss some of those it traces)."""
+    ops = device_ops(fn)
+    n = sum(ops.values())
+    check(all(kernel in k for k in ops) and n <= 1 + 1e-9,
+          f"{what}: device operations per call {ops}, not one {kernel}")
+    if n < 1 - 1e-9:
+        return (f"device operations a call not measured (the profiler "
+                f"recorded {n:.1f} a call, none of them a memset or copy)")
+    return "one kernel a call and no memset or copy"
 
 
 def interleaved_ms(fns, reps: int = 10, rounds: int = 4) -> list:
@@ -745,18 +821,31 @@ REPLACES = {"visibility": "simlod_tpu/render/visibility.py:42",
 
 def frame_kernel_entry(name: str, fk_rows: dict) -> dict:
     """A frame kernel's entry of the kernels line: the exact frame's
-    numbers (phase 4), every compared frame's beside them."""
-    err, ms, plain_ms, bound, call_ms = fk_rows[name]["exact frame"]
-    return {
+    numbers (phase 4), every compared frame's beside them. plan_blocks'
+    times are per batched call (all of a frame's plans in one launch), and
+    its launches count those calls, not plans. ms is the device time of
+    back-to-back calls with the host out of the way (queued_ms),
+    profiler_ms the kernel's own time where torch.profiler recorded every
+    launch (else null), call_ms the CUDA-event time as the host issues the
+    calls."""
+    err, ms, plain_ms, bound, call_ms, prof_ms = fk_rows[name]["exact frame"]
+    out = {
         "name": name, "route": "cuda",
         "source": "simlod_tpu_torch/csrc/frame.cu", "replaces": REPLACES[name],
         "launches": sum(FRAME_LAUNCHES[name].values()),
         "launches_by_path": FRAME_LAUNCHES[name],
         "max_abs_err": max(r[0] for r in fk_rows[name].values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-        "library_ms": None, "call_ms": call_ms,
-        "ms_plain_ms_bound_ms_by_stream": {
-            k: list(r[1:4]) for k, r in fk_rows[name].items()}}
+        "library_ms": None, "call_ms": call_ms, "profiler_ms": prof_ms,
+        "ms_call_ms_profiler_ms_plain_ms_bound_ms_by_stream": {
+            k: [r[1], r[4], r[5], r[2], r[3]]
+            for k, r in fk_rows[name].items()}}
+    if name in FK_LAUNCH:
+        out["launch_floor_ms"] = LAUNCH_FLOOR
+        out["host_us_per_call"] = HOST_US
+        out["launched_grid_coresident_grid_launches_per_frame_by_stream"] \
+            = FK_LAUNCH[name]
+    return out
 
 
 def frame_kernels() -> dict:
@@ -768,8 +857,41 @@ def frame_kernels() -> dict:
 
 
 # launches of each frame kernel on each main path, as note_frame_kernels
-# read them
+# read them (plan_blocks: batched calls, one per frame's plans)
 FRAME_LAUNCHES = {"visibility": {}, "plan_blocks": {}, "edl": {}}
+# per compared frame, the cooperative kernels' launch grid (and the
+# co-resident grid) and their launches per frame
+FK_LAUNCH = {"visibility": {}, "plan_blocks": {}}
+# the empty kernel's times (phase 4): {"plain" | "cooperative": [device ms
+# back to back (queued_ms), CUDA-event ms per call, profiler ms or None]}
+LAUNCH_FLOOR = {}
+# host µs per call of the cooperative kernels' launch path (host_breakdown)
+HOST_US = {}
+
+
+def launch_floor(dev, card: str):
+    """The empty kernel of csrc/frame.cu through the ctypes path, launched
+    plainly and cooperatively, timed as the frame kernels are (CUDA-event
+    ms per call, device ms back to back with the host out of the way, the
+    profiler's): the least a launch of this path costs. Fills
+    LAUNCH_FLOOR."""
+    from simlod_tpu_torch import kernels
+    for coop in (False, True):
+        fn = lambda: kernels.noop(dev, coop)
+        call_ms, dev_ms = time_ms(fn), queued_ms(fn)
+        prof_ms = kernel_device_ms(fn, "noop")
+        LAUNCH_FLOOR["cooperative" if coop else "plain"] = [dev_ms, call_ms,
+                                                            prof_ms]
+        say(f"launch floor, {'cooperative' if coop else 'plain'} launch of "
+            f"the empty kernel through ctypes: {call_ms:.4f} ms per call by "
+            f"CUDA events, {device_text(dev_ms, prof_ms)}; card: {card}")
+
+
+def floor_text() -> str:
+    f = LAUNCH_FLOOR.get("cooperative")
+    return "not measured" if f is None else (
+        f"{f[1]:.4f} ms per call, {dev_text(f[0])} on the device back to "
+        "back")
 
 
 def zero_frame_kernels():
@@ -794,14 +916,23 @@ def _bit_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def _timed(fn, plain, name: str, calls: int = 1):
-    """(device ms, CUDA-event ms, plain ms) per call of a wrapper that
-    launches `calls` kernels of `name` per fn() (device ms by torch.profiler;
-    the CUDA-event time where it recorded none)."""
-    call_ms = time_ms(fn) / calls
-    dev_ms = kernel_device_ms(fn, name)
-    plain_ms = time_ms(plain) / calls
-    return (call_ms if dev_ms is None else dev_ms / calls), call_ms, plain_ms
+def _timed(fn, plain, name: str):
+    """(CUDA-event ms, queued device ms, profiler device ms or None, plain
+    ms) per call of a wrapper that launches one kernel of `name` per fn():
+    back-to-back calls as the host issues them (time_ms), the same with the
+    host out of the way (queued_ms), the kernel's own time by torch.profiler
+    (None where it missed a launch), the plain version by CUDA events."""
+    return (time_ms(fn), queued_ms(fn), kernel_device_ms(fn, name),
+            time_ms(plain))
+
+
+def dev_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def device_text(queued, prof) -> str:
+    return (f"{dev_text(queued)} on the device back to back (its launches "
+            f"by the profiler: {dev_text(prof)})")
 
 
 def edl_vs_plain(color, depth, u, what: str, card: str, rows: dict):
@@ -816,15 +947,134 @@ def edl_vs_plain(color, depth, u, what: str, card: str, rows: dict):
         torch.cuda.synchronize()
         err = _bit_err(got, want)
         check(err == 0, f"edl kernel != plain version ({what}, max err {err})")
-        ms, call_ms, plain_ms = _timed(
+        call_ms, ms, prof_ms, plain_ms = _timed(
             lambda: raster.edl_cuda(color, depth, u, W, H),
             lambda: raster.edl_reference(color, depth, u, W, H), "edl")
     # colour and depth read once, the shaded colour written once
     bound = bound_ms(12 * W * H)
-    rows["edl"][what] = (err, ms, plain_ms, bound, call_ms)
-    say(f"edl, {what}: {W}x{H}: kernel {ms:.4f} ms on the device ({call_ms:.4f}"
-        f" ms per call by CUDA events); plain {plain_ms:.4f} ms; bound "
-        f"{bound:.4f} ms; bit-equal; card: {card}")
+    rows["edl"][what] = (err, ms, plain_ms, bound, call_ms, prof_ms)
+    say(f"edl, {what}: {W}x{H}: kernel {device_text(ms, prof_ms)}; "
+        f"{call_ms:.4f} ms per call by CUDA events; plain {plain_ms:.4f} ms;"
+        f" bound {bound:.4f} ms; bit-equal; card: {card}")
+
+
+def plan_bytes(spec) -> int:
+    """What one plan (a plan_blocks_many spec) must move: off and cnt (and
+    a segment's node) read once, the mask read once, every window block's
+    17 B, every segment's mpos and the count written once."""
+    off, _, out_len, mask, index = (*spec, None, None)[:5]
+    return off.shape[0] * (12 + 4 * (index is not None)) \
+        + (0 if mask is None else mask.shape[0]) + out_len // 128 * 17 + 4
+
+
+def host_breakdown(cfg, state, u, windows, card: str):
+    """Where the host time of the two cooperative kernels' calls goes, on
+    one exact frame's inputs: host µs per call (host clock around 200
+    back-to-back calls, no sync between them) of the whole wrapper and of
+    its parts (input checks, the packed words and the raw stream, the empty
+    kernel's cooperative launch through the same ctypes path), beside what
+    previous launch path spent instead (torch.cuda.current_stream, the
+    torch.cuda.device context). Then the outputs' allocation both ways,
+    timed in turns (ABBA, 8 rounds, medians): one arena a call
+    (kernels.carve, what plan_blocks_many_cuda makes) against one
+    torch.empty per output plus one scratch tensor (what
+    compute_visibility_cuda makes), for visibility without and with a pool
+    and for 2 and 4 plans."""
+    import numpy as np
+    import torch
+    from simlod_tpu_torch import kernels
+    from simlod_tpu_torch.ops import ragged
+    from simlod_tpu_torch.render import raster, visibility
+    from simlod_tpu_torch.render.render import _trim_directories
+    st = _trim_directories(state, *windows[2:])
+    dev = st.child_base.device
+    n = st.child_base.shape[0]
+    vis = visibility.compute_visibility_cuda(st, u)
+    specs = [raster.point_spec(cfg, st, vis.emitted, windows[0]),
+             raster.voxel_spec(cfg, st, vis.emitted, windows[1])]
+    sizes = [(sp[0].shape[0], sp[2] // 128) for sp in specs]
+    cols = [getattr(st, f) for f in visibility._NODE_COLUMNS]
+    i32 = torch.int32
+
+    def us(fn, reps: int = 200) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return dt
+
+    def ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    def empties(chunks, outputs):
+        """One torch.empty per output chunk, one for all the scratch."""
+        def make():
+            out = [torch.empty(k, dtype=dt, device=dev)
+                   for k, dt in chunks[:outputs]]
+            out.append(torch.empty(sum(k for k, _ in chunks[outputs:]),
+                                   dtype=i32, device=dev))
+            return out
+        return make
+
+    def pair(chunks, views):
+        """The arena of `chunks` (its first `views` as tensors) against a
+        torch.empty for each of those and one for the rest (scratch)."""
+        arena = lambda: kernels.carve(dev, chunks, views)
+        each = empties(chunks, views)
+        got = ([], [])
+        for r in range(8):
+            for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+                got[k].append(us((arena, each)[k]))
+        return float(np.median(got[0])), float(np.median(got[1]))
+
+    with uncounted():
+        parts = {
+            "visibility call": us(lambda: visibility.compute_visibility_cuda(
+                st, u)),
+            "its 11 input checks": us(lambda: [
+                kernels.data_ptr(t, "", "", i32, dev, (n,)) for t in cols]
+                + [kernels.data_ptr(st.num_nodes, "", "", i32, dev, ()),
+                   kernels.data_ptr(st.box_min, "", "", torch.float32, dev,
+                                    (3,)),
+                   kernels.data_ptr(st.cube_size, "", "", torch.float32, dev,
+                                    ())]),
+            "plan_blocks_many call (2 sets)": us(
+                lambda: ragged.plan_blocks_many_cuda(specs)),
+            "32 packed words + raw stream": us(
+                lambda: (kernels.words([0] * 32), kernels.stream(dev))),
+            "empty kernel, cooperative, through ctypes": us(
+                lambda: kernels.noop(dev, True)),
+            "previous path: torch.cuda.current_stream": us(
+                lambda: torch.cuda.current_stream(dev).cuda_stream),
+            "previous path: torch.cuda.device context": us(ctx),
+        }
+        # visibility's outputs as an arena would hold them (its wrapper
+        # makes a torch.empty each): emitted, visible, is_large, (exact_p,
+        # exact_v,) dx, dy, counts, (take_p, take_v,) then the partial rows
+        b8, f32 = torch.bool, torch.float32
+        rows = ((5 * min(-(-n // 256), 4096), i32),)
+        plain = ((n, b8),) * 3 + ((n, f32),) * 2 + ((5, i32),)
+        pooled = ((n, b8),) * 5 + ((n, f32),) * 2 + ((5, i32),) \
+            + ((n, i32),) * 2
+        alloc = {
+            "visibility, no pool (6 outputs)": pair(plain + rows, 6),
+            "visibility, pool (10 outputs)": pair(pooled + rows, 10),
+            "2 plans (13 outputs)": pair(ragged.plan_chunks(sizes), 13),
+            "4 plans (25 outputs)": pair(ragged.plan_chunks(sizes * 2), 25),
+        }
+    say("host µs per call, exact frame's inputs: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + f"; card: {card}")
+    say("host µs per call to allocate the outputs, timed in turns, arena vs "
+        "one torch.empty per output + one scratch: " + ", ".join(
+            f"{k} {a:.1f} vs {e:.1f} ({e / a:.2f}x)"
+            for k, (a, e) in alloc.items()) + f"; card: {card}")
+    parts.update({f"allocation, {k}: arena, torch.empty each": list(v)
+                  for k, v in alloc.items()})
+    return parts
 
 
 def frame_kernels_vs_plain(cfg, state, u, what: str, card: str, rows: dict,
@@ -833,20 +1083,22 @@ def frame_kernels_vs_plain(cfg, state, u, what: str, card: str, rows: dict,
     on one frame of `state`: exact at `windows` (point, voxel, node, segment
     windows), or with a draw pool at the pooled windows `pooled` (pool
     points, pool voxels, exact points, exact voxels, node, segment). The
-    frame's visibility (with the pool's takes and masks) and every sample
-    set's block plan: bit-equal on every field, then timed; then the frame's
-    EDL (edl_vs_plain). Adds (err, ms, plain ms, bound ms, call ms) to
-    rows[name][what]."""
+    frame's visibility (with the pool's takes and masks) and its sample
+    sets' block plans as the one batched call the frame makes: bit-equal on
+    every field, then timed per call; then the launches a frame makes and
+    the frame's EDL (edl_vs_plain). Adds (err, ms, plain ms, bound ms, call
+    ms) to rows[name][what] and the grids and launches to FK_LAUNCH."""
     import torch
+    from simlod_tpu_torch import kernels
     from simlod_tpu_torch.ops import ragged
-    from simlod_tpu_torch.render import visibility
+    from simlod_tpu_torch.render import drawpool, raster, visibility
     from simlod_tpu_torch.render.render import (
         _trim_directories, _trim_pool, render_components,
         render_components_pooled)
     nw, sw = (pooled or windows)[-2:]
     st = _trim_directories(state, nw, sw)
     pl = None if pool is None else _trim_pool(pool, nw)
-    w128 = lambda w, cap: ((w or cap) // 128) * 128
+    dev = st.child_base.device
     with uncounted():
         vis = visibility.compute_visibility_cuda(st, u, pl, cfg)
         ref = visibility.compute_visibility_reference(st, u, pl, cfg)
@@ -857,7 +1109,7 @@ def frame_kernels_vs_plain(cfg, state, u, what: str, card: str, rows: dict,
                                == (getattr(ref, f) is None)
                                for f in vis._fields),
               f"visibility kernel != plain version ({what}, max err {err})")
-        ms, call_ms, plain_ms = _timed(
+        call_ms, ms, prof_ms, plain_ms = _timed(
             lambda: visibility.compute_visibility_cuda(st, u, pl, cfg),
             lambda: visibility.compute_visibility_reference(st, u, pl, cfg),
             "visibility")
@@ -867,60 +1119,79 @@ def frame_kernels_vs_plain(cfg, state, u, what: str, card: str, rows: dict,
         # count columns read, 2 takes and 2 masks written (18 B)
         nbytes = n * (32 + 11) + 20 + 16 + (n * 18 if pl is not None else 0)
         rows["visibility"][what] = (err, ms, plain_ms, bound_ms(nbytes),
-                                    call_ms)
-        say(f"visibility, {what}: {n} node slots: kernel {ms:.4f} ms on the "
-            f"device ({call_ms:.4f} ms per call by CUDA events); plain "
-            f"{plain_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms; bit-equal; "
-            f"card: {card}")
-        # the frame's plans, as raster.gather_*_samples and
-        # drawpool.gather_pool_* make them
+                                    call_ms, prof_ms)
+        coop = kernels.coop_grid("visibility", dev)
+        ops = one_launch(
+            lambda: visibility.compute_visibility_cuda(st, u, pl, cfg),
+            "visibility", f"visibility, {what}")
+        say(f"visibility, {what}: {n} node slots: kernel "
+            f"{device_text(ms, prof_ms)}; {call_ms:.4f} ms per call by CUDA "
+            f"events; plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms; launch "
+            f"floor {floor_text()}; launched {kernels.last_grid('visibility')}"
+            f" blocks of 256 (co-resident {coop}); {ops}; bit-equal; card: "
+            f"{card}")
+        # the frame's plans, as render.frame_samples and
+        # render.pooled_frame_samples make them: one call
         if pl is None:
             pw, vw = windows[:2]
-            plans = [((st.seg_off, st.seg_cnt, w128(pw, cfg.max_render_points)),
-                      dict(mask=vis.emitted, index=st.seg_node)),
-                     ((st.vox_voff, st.vox_vcnt,
-                       w128(vw, cfg.max_render_voxels)),
-                      dict(mask=vis.emitted))]
+            specs = [raster.point_spec(cfg, st, vis.emitted, pw),
+                     raster.voxel_spec(cfg, st, vis.emitted, vw)]
         else:
             ppw, pvw, epw, evw = pooled[:4]
-            plans = [((pl.pt_off, vis.take_p, w128(ppw, 0)), {}),
-                     ((pl.vx_off, vis.take_v, w128(pvw, 0)), {}),
-                     ((st.seg_off, st.seg_cnt, w128(epw, 0)),
-                      dict(mask=vis.exact_p, index=st.seg_node)),
-                     ((st.vox_voff, st.vox_vcnt, w128(evw, 0)),
-                      dict(mask=vis.exact_v))]
-        err = 0
-        for a, k in plans:
-            got = ragged.plan_blocks_cuda(*a, **k)
-            want = ragged.plan_blocks_reference(*a, **k)
-            torch.cuda.synchronize()
-            err = max(err, *(_bit_err(getattr(got, f), getattr(want, f))
-                             for f in ("src_row", "pstart_r", "pend_r", "r_ok",
-                                       "sr", "mpos", "count")))
+            specs = [drawpool.pool_point_spec(pl, vis.take_p, ppw),
+                     drawpool.pool_voxel_spec(pl, vis.take_v, pvw),
+                     raster.point_spec(cfg, st, vis.exact_p, epw),
+                     raster.voxel_spec(cfg, st, vis.exact_v, evw)]
+        got = ragged.plan_blocks_many_cuda(specs)
+        want = ragged.plan_blocks_many_reference(specs)
+        torch.cuda.synchronize()
+        err = max(_bit_err(getattr(g, f), getattr(w, f))
+                  for g, w in zip(got, want)
+                  for f in ("src_row", "pstart_r", "pend_r", "r_ok", "sr",
+                            "mpos", "count"))
         check(err == 0, f"plan_blocks kernel != plain version ({what}, max "
               f"err {err})")
-        ms, call_ms, plain_ms = _timed(
-            lambda: [ragged.plan_blocks_cuda(*a, **k) for a, k in plans],
-            lambda: [ragged.plan_blocks_reference(*a, **k) for a, k in plans],
-            "plan_", len(plans))
-        # per plan: off and cnt (and a segment's node) read once, the mask,
-        # every window block's 17 B and every segment's mpos written once
-        nbytes = sum(a[0].shape[0] * (8 + 4 * ("index" in k) + 4)
-                     + (k["mask"].shape[0] if "mask" in k else 0)
-                     + a[2] // 128 * 17 + 4 for a, k in plans) / len(plans)
+        call_ms, ms, prof_ms, plain_ms = _timed(
+            lambda: ragged.plan_blocks_many_cuda(specs),
+            lambda: ragged.plan_blocks_many_reference(specs), "plan_")
+        nbytes = sum(plan_bytes(sp) for sp in specs)
         rows["plan_blocks"][what] = (err, ms, plain_ms, bound_ms(nbytes),
-                                     call_ms)
-        say(f"plan_blocks, {what}: {len(plans)} plans of "
-            f"{[a[0].shape[0] for a, _ in plans]} segments into "
-            f"{[a[2] // 128 for a, _ in plans]} blocks: kernel {ms:.4f} ms per "
-            f"plan on the device ({call_ms:.4f} ms per call by CUDA events); "
-            f"plain {plain_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms; "
-            f"bit-equal; card: {card}")
+                                     call_ms, prof_ms)
+        coop_p = kernels.coop_grid("plan_blocks", dev)
+        segs = [sp[0].shape[0] for sp in specs]
+        blocks = [sp[2] // 128 for sp in specs]
+        ops = one_launch(lambda: ragged.plan_blocks_many_cuda(specs),
+                         "plan_many", f"plan_blocks, {what}")
+        say(f"plan_blocks, {what}: {len(specs)} plans of {segs} segments "
+            f"into {blocks} blocks in one call: kernel "
+            f"{device_text(ms, prof_ms)}; {call_ms:.4f} ms per call by CUDA "
+            f"events; plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms(nbytes):.4f} ms; launch "
+            f"floor {floor_text()}; launched "
+            f"{kernels.last_grid('plan_blocks')} blocks of 1024 (co-resident "
+            f"{coop_p}); {ops}; bit-equal; card: {card}")
+        # the launches one frame of this kind makes
+        vis_f, plan_f = visibility.compute_visibility_cuda, \
+            ragged.plan_blocks_cuda
+        vis_f.launches = plan_f.launches = 0
         if pool is None:
             color, depth, _ = render_components(cfg, state, W, H, u, *windows)
         else:
             color, depth, _ = render_components_pooled(cfg, state, pool, W, H,
                                                        u, *pooled)
+        per_frame = (vis_f.launches, plan_f.launches)
+        # the grids the frame's own launches used, as the C entry points
+        # launched them
+        grids = (kernels.last_grid("visibility"),
+                 kernels.last_grid("plan_blocks"))
+    FK_LAUNCH["visibility"][what] = [grids[0], coop, per_frame[0]]
+    FK_LAUNCH["plan_blocks"][what] = [grids[1], coop_p, per_frame[1]]
+    say(f"launches per frame, {what}: visibility {per_frame[0]} of "
+        f"{grids[0]} blocks, plan_blocks {per_frame[1]} of {grids[1]} blocks "
+        f"(for {len(specs)} sets), as launched; card: {card}")
+    check(per_frame == (1, 1), f"{what}: a frame launched visibility "
+          f"{per_frame[0]} and plan_blocks {per_frame[1]} times, not once")
     edl_vs_plain(color, depth, u, what, card, rows)
 
 
@@ -930,9 +1201,10 @@ def samples_vs_plain(cfg, u, sets, what: str, card: str):
     bit-equal, both timed with CUDA events after a warm-up. Then the stage
     of the two designs on the same sources, timed in turns: "materialize +
     columns + splat_resolve" (the previous frame path) against
-    "splat_samples". ms is the kernel's device time (its four launches, by
-    torch.profiler), call ms the CUDA-event time per call (wrapper
-    included). Returns (max abs err, ms, plain ms, bound ms, previous stage
+    "splat_samples". ms is the device time of back-to-back calls with the
+    host out of the way (queued_ms; profiler ms, its four launches by
+    torch.profiler, beside it), call ms the CUDA-event time per call
+    (wrapper included). Returns (max abs err, ms, plain ms, bound ms, previous stage
     ms, stage ms, drawn rows, call ms)."""
     import torch
     from simlod_tpu_torch.render import raster
@@ -946,8 +1218,10 @@ def samples_vs_plain(cfg, u, sets, what: str, card: str):
         check(torch.equal(kc, rc) and torch.equal(kd, rd),
               f"splat_samples != plain version ({what}, max err {err})")
         call_ms = time_ms(lambda: raster.splat_samples(cfg, u, W, H, sets))
-        ms = kernel_device_ms(lambda: raster.splat_samples(cfg, u, W, H, sets),
-                              "splat_")
+        ms = queued_ms(lambda: raster.splat_samples(cfg, u, W, H, sets))
+        prof_ms = kernel_device_ms(
+            lambda: raster.splat_samples(cfg, u, W, H, sets), "splat_",
+            per_call=4)
         plain_ms = time_ms(lambda: raster.splat_samples_reference(
             cfg, u, W, H, sets))
         mode = u.use_high_quality_shading.to(torch.int32).reshape(1)
@@ -962,17 +1236,13 @@ def samples_vs_plain(cfg, u, sets, what: str, card: str):
     blocks = sum(s.plan.out_len // 128 for s in sets)
     full = sum(int(s.plan.r_ok.sum()) for s in sets)
     bound = bound_ms(16 * rows + blocks + 16 * full + 8 * npx)
-    if ms is None:
-        say(f"splat_samples, {what}: torch.profiler recorded no kernel time "
-            f"(not measured); the CUDA-event time per call stands for it")
-        ms = call_ms
     say(f"splat_samples, {what}: {len(sets)} sets, {rows} drawn rows in "
-        f"{full} of {blocks} plan blocks: kernel {ms:.4f} ms on the device "
-        f"({call_ms:.4f} ms per call by CUDA events, wrapper included); plain "
+        f"{full} of {blocks} plan blocks: kernel {device_text(ms, prof_ms)}; "
+        f"{call_ms:.4f} ms per call by CUDA events, wrapper included; plain "
         f"{plain_ms:.4f} ms; bound {bound:.4f} ms; stage, timed in turns: "
         f"materialize + columns + splat_resolve {prev:.4f} ms vs "
         f"splat_samples {stage:.4f} ms; bit-equal; card: {card}")
-    return err, ms, plain_ms, bound, prev, stage, rows, call_ms
+    return err, ms, plain_ms, bound, prev, stage, rows, call_ms, prof_ms
 
 
 N_SHARDS = 4
@@ -1560,6 +1830,12 @@ def main(argv=None) -> int:
     lib = kernels.build()
     say(f"kernel build, one nvcc per source in parallel, then one link: "
         f"{kernels.build_seconds:.2f} s ({lib.name})")
+    cdev = torch.device("cuda", torch.cuda.current_device())
+    say(f"co-resident grids of the cooperative kernels (csrc/frame.cu): "
+        f"plan_many {kernels.coop_grid('plan_blocks', cdev)} blocks of 1024, "
+        f"visibility {kernels.coop_grid('visibility', cdev)} blocks of 256, "
+        f"on {torch.cuda.get_device_properties(cdev).multi_processor_count} "
+        f"SMs (grid.sync() built without -rdc); card: {card}")
 
     with tempfile.TemporaryDirectory() as tmp:
         # --- phase 2: small reference ---
@@ -1634,6 +1910,9 @@ def main(argv=None) -> int:
 
         # --- phase 4: kernels against plain versions on this frame ---
         rows, srows, xrows = {}, {}, {}
+        launch_floor(cdev, card)
+        HOST_US.update(host_breakdown(eng.cfg, eng.state, eng.uniforms(W, H),
+                                      eng.last_windows, card))
         fk_rows = {name: {} for name in FRAME_LAUNCHES}
         frame_kernels_vs_plain(eng.cfg, eng.state, eng.uniforms(W, H),
                                "exact frame", card, fk_rows, eng.last_windows)
@@ -2064,7 +2343,7 @@ def main(argv=None) -> int:
         "max_abs_err": max(r[0] for r in xrows.values()),
         "ms": xx[1], "plain_ms": xx[2], "bound_ms": xx[3], "bound_by": "bytes",
         "library_ms": None, "stage_ms": xx[5], "previous_stage_ms": xx[4],
-        "call_ms": xx[7],
+        "call_ms": xx[7], "profiler_ms": xx[8],
         "ms_plain_ms_bound_ms_by_stream": by_stream(xrows),
     }, {
         "name": "splat_resolve", "route": "cuda",

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from .render.frustum import frustum_planes_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,6 +192,10 @@ class UniformsHost:
     min_node_size: float
     point_budget: float
     edl_strength: float
+    planes: tuple                   # 24 floats: the frustum planes [6, 4]
+    # the visibility kernel's 44 float32 arguments (transform_update_bound,
+    # planes, width, height, min_node_size, point_budget), packed once
+    vis_floats: bytes
 
 
 @dataclasses.dataclass
@@ -245,6 +250,9 @@ class Uniforms:
             + np.array([s.point_size], np.int32).tobytes() \
             + np.array(switches, np.bool_).tobytes()
         buf = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
+        planes = frustum_planes_host(tub).reshape(24)
+        vis_floats = np.concatenate([floats[22:38], planes,
+                                     floats[[0, 1, 3, 5]]])
         f = buf[:152].view(torch.float32)
         sw = buf[156:163].view(torch.bool)
         return Uniforms(
@@ -268,7 +276,9 @@ class Uniforms:
                 width=float(floats[0]), height=float(floats[1]),
                 min_node_size=float(floats[3]),
                 point_budget=float(floats[5]),
-                edl_strength=float(floats[4])),
+                edl_strength=float(floats[4]),
+                planes=tuple(planes.tolist()),
+                vis_floats=vis_floats.astype(np.float32).tobytes()),
         )
 
 

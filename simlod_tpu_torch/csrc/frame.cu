@@ -3,7 +3,7 @@
 // (simlod_tpu/render/render.py:139-140), and XLA fuses these stages into a
 // few device loops; in eager PyTorch each of their ops was a launch of its
 // own (~600 per 1080p frame, while the splat itself is four). Here each stage
-// is one or a few launches:
+// is one launch:
 //
 //   visibility  (render/visibility.py; JAX visibility.compute_visibility,
 //               simlod_tpu/render/visibility.py:42; the reference's
@@ -11,26 +11,39 @@
 //               node slot computes the node's box, the 8-corner screen extents,
 //               the p-vertex frustum test, has_samples, visible, is_large,
 //               the parent's is_large (recomputed in the same thread) and
-//               emitted; the five visible counts are warp-reduced and added with
-//               integer atomics (order-free). With a draw pool it also writes
-//               the node's budget, the two pool takes and the two exact masks
+//               emitted. With a draw pool it also writes the node's budget,
+//               the two pool takes and the two exact masks
 //               (render/drawpool.py node_budgets, split_masks, _pool_take).
-//   plan_blocks (ops/ragged.py; JAX ragged.plan, simlod_tpu/ops/ragged.py:46):
-//               the block plan of a ragged gather from the unmasked (off, cnt)
-//               columns and the frame's selection: a block scan of the
-//               segments' row counts, one block's scan of the block sums, and
-//               a fill in which each warp writes its 32 segments' rows.
+//               The five visible counts: each block writes its sums as one
+//               partial row, a grid barrier, block 0 adds the rows (integer
+//               sums: order-free). No memset, no atomics, and nothing carries
+//               over between calls.
+//   plan_many   (ops/ragged.py plan_blocks_many; JAX ragged.plan,
+//               simlod_tpu/ops/ragged.py:46): the block plans of all of a
+//               frame's ragged gathers (up to MAX_PLANS sets, each from its
+//               unmasked (off, cnt) columns and the frame's selection) in one
+//               launch, in three phases split by grid barriers: block scans of
+//               the segments' row and sample counts over 1024-segment tiles of
+//               every set, one block per set scanning its tile sums, and a fill
+//               in which each warp writes its 32 segments' rows.
 //   edl         (render/raster.edl; JAX raster.edl,
 //               simlod_tpu/render/raster.py:259): one thread per pixel reads
 //               its depth and its 4 neighbours' (wrapping at the image edges,
 //               as torch.roll), and shades its colour.
 //
-// What bounds them: memory, and little of it (a node's 32 B, a segment's 8-13
-// B, a plan row's 17 B, a pixel's 12 B): each is a few microseconds on the
-// card. What the design does about it: every launch reads its inputs once and
-// writes its outputs once; nothing in between goes to device memory except
-// the plan's per-segment scan (4 B a segment) and its block sums; no launch
-// needs a host read, and the frame's scalars come by value.
+// What bounds them: the launch. Their bytes are few (a node's 32 B, a
+// segment's 8-13 B, a plan row's 17 B, a pixel's 12 B): a few KB to a few MB,
+// a fraction of a microsecond to a few microseconds at 3.35 TB/s, under the
+// cost of one launch and of the host work around it. What the design does
+// about it: one launch a stage and a frame; visibility and the plans are
+// cooperative launches (cudaLaunchCooperativeKernel, grid barriers through
+// cooperative_groups) whose grid is never larger than what is co-resident on
+// the card (occupancy x SMs, computed once per device and cached), so that the
+// scans and count sums that needed a second launch or a memset are a barrier
+// inside one; every launch reads its inputs once and writes its outputs once;
+// nothing in between goes to device memory except the plan's per-segment scan
+// (4 B a segment), its tile sums and visibility's partial rows; no launch needs
+// a host read, and the frame's scalars come by value.
 //
 // Bit-equality with the plain versions (torch on the card, one rounding per
 // op): every float op is an explicit __f*_rn intrinsic in torch's op order
@@ -42,8 +55,13 @@
 // so the kernels test for NaN first, as torch does; torch's CUDA division of
 // a tensor by a Python scalar multiplies by the scalar's float reciprocal.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -51,10 +69,36 @@ constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS = 4096;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int A = 128;  // ragged window block (ops/ragged.py A)
+constexpr int COUNTS = 5;  // visibility's visible counts
 
 inline int blocks_for(long long n) {
   const long long b = (n + THREADS - 1) / THREADS;
   return static_cast<int>(b < 1 ? 1 : (b > MAX_BLOCKS ? MAX_BLOCKS : b));
+}
+
+// Makes `device` current for a launch (torch's stream of a tensor belongs to
+// the tensor's device) and restores the caller's device afterwards.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) : device_(device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device_) err_ = cudaSetDevice(device_);
+  }
+  ~DeviceGuard() {
+    if (err_ == cudaSuccess && prev_ != device_) cudaSetDevice(prev_);
+  }
+  int error() const { return static_cast<int>(err_); }
+
+ private:
+  int device_, prev_ = -1;
+  cudaError_t err_;
+};
+
+// The first error of a launch call: the launch's own, or cudaGetLastError()
+// (which it also clears, so that no later call reports it again).
+inline int launch_error(cudaError_t launched) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
 }
 
 // torch.minimum / maximum on float tensors: a NaN operand is the result
@@ -101,6 +145,7 @@ struct VisArgs {
   int* take_v;
   bool* exact_p;
   bool* exact_v;
+  int* partials;  // [gridDim.x, 5] scratch: each block's counts
   float m[16];       // transform_update_bound, row-major
   float planes[24];  // frustum.frustum_planes_host(m)
   float width, height, min_node_size, point_budget;
@@ -160,104 +205,129 @@ __device__ int node_budget(const VisArgs& a, float dx, float dy) {
   return b != b ? 0 : __float2int_rz(b);
 }
 
+// Launched cooperatively (grid <= co-resident blocks): every thread reaches
+// the grid barrier.
 __global__ void __launch_bounds__(THREADS) visibility(const __grid_constant__ VisArgs a) {
   const int num_nodes = *a.num_nodes;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  // whole warps run every iteration: the count reduction needs all 32 lanes
-  for (long long t = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-       t - lane < a.n; t += stride) {
-    unsigned c_nodes = 0, c_inner = 0, c_leaves = 0, c_points = 0, c_voxels = 0;
-    if (t < a.n) {
-      const int i = static_cast<int>(t);
-      const bool active = i < num_nodes;
-      const Extent e = node_extent(a, i);
-      bool in_frustum = true;
+  // this thread's counts over its node slots (unsigned: wraps as torch's
+  // int32 sums do)
+  unsigned c_nodes = 0, c_inner = 0, c_leaves = 0, c_points = 0, c_voxels = 0;
+  for (long long t = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; t < a.n;
+       t += stride) {
+    const int i = static_cast<int>(t);
+    const bool active = i < num_nodes;
+    const Extent e = node_extent(a, i);
+    bool in_frustum = true;
 #pragma unroll
-      for (int p = 0; p < 6; ++p) {
-        const float* pl = a.planes + 4 * p;
-        const float px = pl[0] > 0.0f ? e.mx[0] : e.mn[0];
-        const float py = pl[1] > 0.0f ? e.mx[1] : e.mn[1];
-        const float pz = pl[2] > 0.0f ? e.mx[2] : e.mn[2];
-        const float dist = __fadd_rn(
-            __fadd_rn(__fadd_rn(__fmul_rn(px, pl[0]), __fmul_rn(py, pl[1])), __fmul_rn(pz, pl[2])),
-            pl[3]);
-        in_frustum = in_frustum && dist >= 0.0f;
-      }
-      const int np = a.num_points[i], nv = a.num_voxels[i], cb = a.child_base[i];
-      const bool has_samples = np > 0 || nv > 0 || cb >= 0;
-      const bool vis = active && in_frustum && has_samples;
-      const bool il = active && large(a, e.dx, e.dy);
-      // the parent's is_large, from its own box (parent clamped into the
-      // directory, as visibility.py indexes it)
-      const int par = a.parent[i];
-      bool parent_large = false;
-      if (par >= 0) {
-        const int j = min(par, a.n - 1);
-        const Extent pe = node_extent(a, j);
-        parent_large = j < num_nodes && large(a, pe.dx, pe.dy);
-      }
-      const bool leaf = cb < 0;
-      const bool em = vis && ((parent_large && !il) || (il && leaf));
-      a.emitted[i] = em;
-      a.visible[i] = vis;
-      a.is_large[i] = il;
-      a.dx[i] = e.dx;
-      a.dy[i] = e.dy;
-      const bool leafish = em && np > 0;
-      const bool innerish = em && np == 0 && nv > 0;
-      c_nodes = em;
-      c_inner = innerish;
-      c_leaves = leafish;
-      c_points = leafish ? static_cast<unsigned>(np) : 0u;
-      c_voxels = innerish ? static_cast<unsigned>(nv) : 0u;
-      if (a.pool_pt_cnt) {  // draw pool: budgets, split masks, takes
-        const int budget = node_budget(a, e.dx, e.dy);
-        const int pc = a.pool_pt_cnt[i], vc = a.pool_vx_cnt[i];
-        const bool poolable_p = np <= a.draw_cap && (pc > 0 || np == 0);
-        const bool poolable_v = nv <= a.draw_cap && (vc > 0 || nv == 0);
-        a.take_p[i] = em && poolable_p ? min(pc, budget) : 0;
-        a.take_v[i] = em && poolable_v ? min(vc, budget) : 0;
-        a.exact_p[i] = em && np > 0 && !poolable_p;
-        a.exact_v[i] = em && nv > 0 && !poolable_v;
-      }
+    for (int p = 0; p < 6; ++p) {
+      const float* pl = a.planes + 4 * p;
+      const float px = pl[0] > 0.0f ? e.mx[0] : e.mn[0];
+      const float py = pl[1] > 0.0f ? e.mx[1] : e.mn[1];
+      const float pz = pl[2] > 0.0f ? e.mx[2] : e.mn[2];
+      const float dist = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(px, pl[0]), __fmul_rn(py, pl[1])), __fmul_rn(pz, pl[2])),
+          pl[3]);
+      in_frustum = in_frustum && dist >= 0.0f;
     }
-    c_nodes = __reduce_add_sync(FULL, c_nodes);
-    c_inner = __reduce_add_sync(FULL, c_inner);
-    c_leaves = __reduce_add_sync(FULL, c_leaves);
-    c_points = __reduce_add_sync(FULL, c_points);
-    c_voxels = __reduce_add_sync(FULL, c_voxels);
-    if (lane == 0) {
-      unsigned* cnt = reinterpret_cast<unsigned*>(a.counts);
-      if (c_nodes) atomicAdd(cnt + 0, c_nodes);
-      if (c_inner) atomicAdd(cnt + 1, c_inner);
-      if (c_leaves) atomicAdd(cnt + 2, c_leaves);
-      if (c_points) atomicAdd(cnt + 3, c_points);
-      if (c_voxels) atomicAdd(cnt + 4, c_voxels);
+    const int np = a.num_points[i], nv = a.num_voxels[i], cb = a.child_base[i];
+    const bool has_samples = np > 0 || nv > 0 || cb >= 0;
+    const bool vis = active && in_frustum && has_samples;
+    const bool il = active && large(a, e.dx, e.dy);
+    // the parent's is_large, from its own box (parent clamped into the
+    // directory, as visibility.py indexes it)
+    const int par = a.parent[i];
+    bool parent_large = false;
+    if (par >= 0) {
+      const int j = min(par, a.n - 1);
+      const Extent pe = node_extent(a, j);
+      parent_large = j < num_nodes && large(a, pe.dx, pe.dy);
     }
+    const bool leaf = cb < 0;
+    const bool em = vis && ((parent_large && !il) || (il && leaf));
+    a.emitted[i] = em;
+    a.visible[i] = vis;
+    a.is_large[i] = il;
+    a.dx[i] = e.dx;
+    a.dy[i] = e.dy;
+    const bool leafish = em && np > 0;
+    const bool innerish = em && np == 0 && nv > 0;
+    c_nodes += em;
+    c_inner += innerish;
+    c_leaves += leafish;
+    c_points += leafish ? static_cast<unsigned>(np) : 0u;
+    c_voxels += innerish ? static_cast<unsigned>(nv) : 0u;
+    if (a.pool_pt_cnt) {  // draw pool: budgets, split masks, takes
+      const int budget = node_budget(a, e.dx, e.dy);
+      const int pc = a.pool_pt_cnt[i], vc = a.pool_vx_cnt[i];
+      const bool poolable_p = np <= a.draw_cap && (pc > 0 || np == 0);
+      const bool poolable_v = nv <= a.draw_cap && (vc > 0 || nv == 0);
+      a.take_p[i] = em && poolable_p ? min(pc, budget) : 0;
+      a.take_v[i] = em && poolable_v ? min(vc, budget) : 0;
+      a.exact_p[i] = em && np > 0 && !poolable_p;
+      a.exact_v[i] = em && nv > 0 && !poolable_v;
+    }
+  }
+  // the block's counts: warp sums, then warp 0 adds the block's warps and
+  // writes them as the block's partial row
+  __shared__ unsigned warp_counts[THREADS / 32][COUNTS];
+  const unsigned mine[COUNTS] = {c_nodes, c_inner, c_leaves, c_points, c_voxels};
+#pragma unroll
+  for (int c = 0; c < COUNTS; ++c) {
+    const unsigned s = __reduce_add_sync(FULL, mine[c]);
+    if (lane == 0) warp_counts[warp][c] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int c = 0; c < COUNTS; ++c) {
+      const unsigned s =
+          __reduce_add_sync(FULL, lane < THREADS / 32 ? warp_counts[lane][c] : 0u);
+      if (lane == 0) a.partials[blockIdx.x * COUNTS + c] = static_cast<int>(s);
+    }
+  }
+  cg::this_grid().sync();
+  // block 0 adds the partial rows: warp c sums count c
+  if (blockIdx.x == 0 && warp < COUNTS) {
+    unsigned s = 0;
+    for (unsigned b = lane; b < gridDim.x; b += 32)
+      s += static_cast<unsigned>(a.partials[b * COUNTS + warp]);
+    s = __reduce_add_sync(FULL, s);
+    if (lane == 0) a.counts[warp] = static_cast<int>(s);
   }
 }
 
-// ---- plan_blocks ------------------------------------------------------------
+// ---- plan_many --------------------------------------------------------------
 
-constexpr int SCAN = 1024;  // segments per scan block (one per thread)
+constexpr int SCAN = 1024;    // segments a tile (one a thread): plan_many's block
+constexpr int MAX_PLANS = 8;  // sets a launch plans (ops/ragged.py MAX_PLANS)
 
-struct PlanArgs {
+// One set's plan: simlod_plan_blocks_many reads the pointers and sizes from
+// the wrapper's 16 words a set and derives WR, nt, tile0 and warp0.
+struct PlanSet {
   const int* off;    // [S] segment start in the pool
   const int* cnt;    // [S] segment length
   const bool* mask;  // selection, or null: every segment
   const int* index;  // [S] mask index per segment, or null: mask[i]
-  int S, mask_len, WR, out_len, nb;
-  int* local;  // [S] scratch: exclusive row offset within the scan block
-  int* bsum;   // [2 nb] scratch: block row sums, then block sample sums
-  int* total;  // [1] scratch: rows of all segments
-  int* src_row;
+  int* src_row;      // [WR] outputs
   int* pstart;
   int* pend;
-  bool* r_ok;
   int* sr;
   int* mpos;   // [S]
   int* count;  // [1]: min(sum of selected counts, out_len)
+  bool* r_ok;  // [WR]
+  int* local;  // [S] scratch: exclusive row offset within the tile
+  int* tsum;   // [2 nt + 1] scratch: tile row sums (then offsets), tile
+               // sample sums, and the rows of all segments
+  int S, mask_len, out_len, WR;
+  int nt;            // tiles: ceil(S / SCAN)
+  int tile0, warp0;  // the set's first tile and fill warp in the launch
+};
+
+struct PlanMany {
+  PlanSet set[MAX_PLANS];
+  int nsets, ntiles, nwarps;
 };
 
 __device__ __forceinline__ int floor_div(int a, int b) {
@@ -269,9 +339,10 @@ struct Seg {
   int c, row0, phase, rcnt;
 };
 
-// raster.gather_*_samples' masking, then ragged.plan_blocks' per-segment
+// the frame's selection of the segment (ragged._select), then
+// ragged.plan_blocks_reference's per-segment
 // quantities (zero for an empty segment)
-__device__ Seg segment(const PlanArgs& a, int i) {
+__device__ Seg segment(const PlanSet& a, int i) {
   Seg s;
   int c = a.cnt[i];
   if (a.mask) {
@@ -324,41 +395,7 @@ __device__ int block_scan(int v, int& tot) {
   return before + x - v;
 }
 
-// 1: per scan block, each segment's row offset within the block, and the
-// block's sums of rows and of selected samples
-__global__ void __launch_bounds__(SCAN) plan_scan(const __grid_constant__ PlanArgs a) {
-  const int i = blockIdx.x * SCAN + threadIdx.x;
-  Seg s{0, 0, 0, 0};
-  if (i < a.S) s = segment(a, i);
-  int rows, samples;
-  const int before = block_scan(s.rcnt, rows);
-  block_scan(s.c, samples);
-  if (i < a.S) a.local[i] = before;
-  if (threadIdx.x == 0) {
-    a.bsum[blockIdx.x] = rows;
-    a.bsum[a.nb + blockIdx.x] = samples;
-  }
-}
-
-// 2: one block scans the block sums into block offsets
-__global__ void __launch_bounds__(SCAN) plan_scan_sums(const __grid_constant__ PlanArgs a) {
-  int carry = 0, samples = 0;
-  for (int base = 0; base < a.nb; base += SCAN) {
-    const int j = base + threadIdx.x;
-    int tot, stot;
-    const int before = block_scan(j < a.nb ? a.bsum[j] : 0, tot);
-    block_scan(j < a.nb ? a.bsum[a.nb + j] : 0, stot);
-    if (j < a.nb) a.bsum[j] = carry + before;
-    carry += tot;
-    samples += stot;
-  }
-  if (threadIdx.x == 0) {
-    *a.total = carry;
-    *a.count = min(samples, a.out_len);
-  }
-}
-
-__device__ __forceinline__ void write_row(const PlanArgs& a, int r, int src_row, int pstart,
+__device__ __forceinline__ void write_row(const PlanSet& a, int r, int src_row, int pstart,
                                           int c, bool ok, int seg) {
   a.src_row[r] = src_row;
   a.pstart[r] = pstart;
@@ -367,20 +404,67 @@ __device__ __forceinline__ void write_row(const PlanArgs& a, int r, int src_row,
   a.sr[r] = seg;
 }
 
-// 3: each warp writes the rows of its 32 segments (one segment at a time, a
-// row a lane) and their mpos; rows past the last segment's end get the plain
-// version's values for them (segment S - 1, r_ok false)
-__global__ void __launch_bounds__(THREADS) plan_fill(const __grid_constant__ PlanArgs a) {
+// the set of a tile (tiles) or of a fill warp (!tiles) of the launch
+__device__ __forceinline__ int set_of(const PlanMany& p, int item, bool tiles) {
+  int k = 0;
+  while (k + 1 < p.nsets && item >= (tiles ? p.set[k + 1].tile0 : p.set[k + 1].warp0)) ++k;
+  return k;
+}
+
+// Launched cooperatively (grid <= co-resident blocks): every thread reaches
+// both grid barriers.
+__global__ void __launch_bounds__(SCAN) plan_many(const __grid_constant__ PlanMany p) {
+  cg::grid_group grid = cg::this_grid();
+  // (a) per tile of every set: each segment's row offset within the tile,
+  // and the tile's sums of rows and of selected samples
+  for (int item = blockIdx.x; item < p.ntiles; item += gridDim.x) {
+    const PlanSet& a = p.set[set_of(p, item, true)];
+    const int t = item - a.tile0;
+    const int i = t * SCAN + threadIdx.x;
+    Seg s{0, 0, 0, 0};
+    if (i < a.S) s = segment(a, i);
+    int rows, samples;
+    const int before = block_scan(s.rcnt, rows);
+    block_scan(s.c, samples);
+    if (i < a.S) a.local[i] = before;
+    if (threadIdx.x == 0) {
+      a.tsum[t] = rows;
+      a.tsum[a.nt + t] = samples;
+    }
+  }
+  grid.sync();
+  // (b) one block per set: the tile sums into tile offsets, the set's rows
+  // and its clamped sample count
+  for (int k = blockIdx.x; k < p.nsets; k += gridDim.x) {
+    const PlanSet& a = p.set[k];
+    int carry = 0, samples = 0;
+    for (int base = 0; base < a.nt; base += SCAN) {
+      const int j = base + threadIdx.x;
+      int tot, stot;
+      const int before = block_scan(j < a.nt ? a.tsum[j] : 0, tot);
+      block_scan(j < a.nt ? a.tsum[a.nt + j] : 0, stot);
+      if (j < a.nt) a.tsum[j] = carry + before;
+      carry += tot;
+      samples += stot;
+    }
+    if (threadIdx.x == 0) {
+      a.tsum[2 * a.nt] = carry;
+      *a.count = min(samples, a.out_len);
+    }
+  }
+  grid.sync();
+  // (c) each warp writes the rows of 32 segments of one set (one segment at
+  // a time, a row a lane) and their mpos
   const int lane = threadIdx.x & 31;
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  for (long long t = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-       t - lane < a.S; t += stride) {
-    const int i = static_cast<int>(t);
+  const int warps = gridDim.x * (SCAN / 32);
+  for (int w = blockIdx.x * (SCAN / 32) + (threadIdx.x >> 5); w < p.nwarps; w += warps) {
+    const PlanSet& a = p.set[set_of(p, w, false)];
+    const int seg0 = (w - a.warp0) * 32, i = seg0 + lane;
     Seg s{0, 0, 0, 0};
     int ro = 0;
     if (i < a.S) {
       s = segment(a, i);
-      ro = a.local[i] + a.bsum[i / SCAN];
+      ro = a.local[i] + a.tsum[i / SCAN];
       a.mpos[i] = s.c > 0 ? ro * A + s.phase : a.out_len;
     }
     for (int k = 0; k < 32; ++k) {
@@ -391,17 +475,23 @@ __global__ void __launch_bounds__(THREADS) plan_fill(const __grid_constant__ Pla
       const int kc = __shfl_sync(FULL, s.c, k);
       const int end = min(kro + krc, a.WR);
       for (int r = kro + lane; r < end; r += 32)
-        write_row(a, r, krow0 + (r - kro), kstart, kc, true, static_cast<int>(t - lane) + k);
+        write_row(a, r, krow0 + (r - kro), kstart, kc, true, seg0 + k);
     }
   }
-  const int total = *a.total;
-  if (total >= a.WR) return;
-  const Seg last = segment(a, a.S - 1);
-  const int ro = total - last.rcnt;
-  for (long long r = total + static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-       r < a.WR; r += stride) {
-    const int ri = static_cast<int>(r);
-    write_row(a, ri, last.row0 + (ri - ro), ro * A + last.phase, last.c, false, a.S - 1);
+  // rows past each set's last segment, over the whole grid: the plain
+  // version's values for them (segment S - 1, r_ok false)
+  const long long threads = static_cast<long long>(gridDim.x) * SCAN;
+  for (int k = 0; k < p.nsets; ++k) {
+    const PlanSet& a = p.set[k];
+    const int total = a.tsum[2 * a.nt];
+    if (total >= a.WR) continue;
+    const Seg last = segment(a, a.S - 1);
+    const int ro = total - last.rcnt;
+    for (long long r = total + static_cast<long long>(blockIdx.x) * SCAN + threadIdx.x;
+         r < a.WR; r += threads) {
+      const int ri = static_cast<int>(r);
+      write_row(a, ri, last.row0 + (ri - ro), ro * A + last.phase, last.c, false, a.S - 1);
+    }
   }
 }
 
@@ -443,21 +533,92 @@ __global__ void __launch_bounds__(THREADS) edl(const int* __restrict__ color,
   }
 }
 
+// ---- the launch floor -----------------------------------------------------
+
+__global__ void noop() {}
+
+// ---- co-resident grids ----------------------------------------------------
+
+constexpr int MAX_DEVICES = 64;
+constexpr int COOP_PLAN = 0, COOP_VISIBILITY = 1, COOP_KERNELS = 2;
+int coop_grids[COOP_KERNELS][MAX_DEVICES];  // 0: not computed yet
+
+// The largest grid of a cooperative kernel that is co-resident on `device`
+// (the current device): blocks per SM at its block size times the SMs,
+// computed once per device. Threads that race here compute the same value.
+int coop_grid(int kernel, int device, int* grid) {
+  if (kernel < 0 || kernel >= COOP_KERNELS || device < 0 || device >= MAX_DEVICES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int g = __atomic_load_n(&coop_grids[kernel][device], __ATOMIC_RELAXED);
+  if (g == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = kernel == COOP_PLAN
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plan_many, SCAN, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, visibility, THREADS, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    g = per_sm * sms;
+    if (g < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    __atomic_store_n(&coop_grids[kernel][device], g, __ATOMIC_RELAXED);
+  }
+  *grid = g;
+  return 0;
+}
+
+// The grid of the last launch of each cooperative kernel in this process,
+// as simlod_last_grid reads it back.
+int last_grids[COOP_KERNELS];
+
+void note_grid(int kernel, int grid) {
+  __atomic_store_n(&last_grids[kernel], grid, __ATOMIC_RELAXED);
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes in kernels/__init__.py). Each launches on
-// `stream`, allocates nothing (outputs and scratch come from the caller), does
-// not synchronise, and returns the first nonzero cudaGetLastError().
+// `stream` (of `device`, made current for the launch), allocates nothing
+// (outputs and scratch come from the caller), does not synchronise, and
+// returns the first error of the launch (cudaGetLastError() included, and
+// cleared).
 
-// visibility: `ptrs` is a host array of 23 device pointers in VisArgs' order
-// (the two pool counts and the four pool outputs null without a pool),
+// The co-resident grid of a cooperative kernel (0: plan_many, 1: visibility)
+// on `device`, or minus a cudaError.
+extern "C" int simlod_coop_grid(int kernel, int device) {
+  const DeviceGuard guard(device);
+  if (guard.error()) return -guard.error();
+  int g = 0;
+  const int rc = coop_grid(kernel, device, &g);
+  return rc ? -rc : g;
+}
+
+// The grid (blocks) of the last launch of a cooperative kernel (0: plan_many,
+// 1: visibility) in this process, on any device; 0 before its first launch,
+// minus cudaErrorInvalidValue for another kernel number.
+extern "C" int simlod_last_grid(int kernel) {
+  if (kernel < 0 || kernel >= COOP_KERNELS) return -static_cast<int>(cudaErrorInvalidValue);
+  return __atomic_load_n(&last_grids[kernel], __ATOMIC_RELAXED);
+}
+
+// visibility: `ptrs` is a host array of 24 device pointers in VisArgs' order
+// (without a pool the two pool counts and the four pool outputs are null;
+// partials holds blocks_for(n) rows of 5 ints, at least the grid),
 // `floats` a host array of 44 floats (m[16], planes[24], width, height,
-// min_node_size, point_budget). Two launches: a memset of counts[5], the
-// kernel.
+// min_node_size, point_budget: config.UniformsHost.vis_floats). One
+// cooperative launch of min(co-resident grid, blocks_for(n)) blocks.
 extern "C" int simlod_visibility(const void* ptrs, const void* floats, int n, int draw_cap,
-                                 void* stream) {
+                                 int device, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
+  int grid = 0;
+  int rc = coop_grid(COOP_VISIBILITY, device, &grid);
+  if (rc) return rc;
+  grid = std::min(grid, blocks_for(n));
+  note_grid(COOP_VISIBILITY, grid);
   VisArgs a{};
   const long long* p = static_cast<const long long*>(ptrs);
   const float* f = static_cast<const float*>(floats);
@@ -485,6 +646,7 @@ extern "C" int simlod_visibility(const void* ptrs, const void* floats, int n, in
   a.take_v = static_cast<int*>(ptr(20));
   a.exact_p = static_cast<bool*>(ptr(21));
   a.exact_v = static_cast<bool*>(ptr(22));
+  a.partials = static_cast<int*>(ptr(23));
   for (int k = 0; k < 16; ++k) a.m[k] = f[k];
   for (int k = 0; k < 24; ++k) a.planes[k] = f[16 + k];
   a.width = f[40];
@@ -493,50 +655,85 @@ extern "C" int simlod_visibility(const void* ptrs, const void* floats, int n, in
   a.point_budget = f[43];
   a.n = n;
   a.draw_cap = draw_cap;
-  int rc = static_cast<int>(cudaMemsetAsync(a.counts, 0, 5 * sizeof(int), st));
-  if (rc != 0) return rc;
-  visibility<<<blocks_for(n), THREADS, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&a};
+  return launch_error(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(visibility), grid,
+                                                  THREADS, args, 0,
+                                                  static_cast<cudaStream_t>(stream)));
 }
 
-// plan_blocks: `ptrs` is a host array of 12 device pointers (off, cnt, mask,
-// index, scratch, src_row, pstart, pend, r_ok, sr, mpos, count; mask and
-// index may be null); scratch holds S + 2 nb + 1 ints, nb = ceil(S / 1024).
-// Three launches: the block scan, the scan of block sums, the fill.
-extern "C" int simlod_plan_blocks(const void* ptrs, int S, int mask_len, int out_len,
-                                  void* stream) {
-  if (S < 1 || out_len < 0 || out_len % A != 0) return static_cast<int>(cudaErrorInvalidValue);
+// plan_many: `words` is a host array of nsets x 16 int64 words, per set: the
+// device pointers off, cnt, mask, index (mask and index may be null), src_row,
+// pstart, pend, sr, mpos, count, r_ok, local ([S] ints of scratch), tsum
+// ([2 ceil(S / 1024) + 1] ints of scratch), then S, mask_len, out_len.
+// One cooperative launch of at most the co-resident grid.
+extern "C" int simlod_plan_blocks_many(const void* words, int nsets, int device,
+                                       void* stream) {
+  if (nsets < 1 || nsets > MAX_PLANS) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
+  int grid = 0;
+  int rc = coop_grid(COOP_PLAN, device, &grid);
+  if (rc) return rc;
+  PlanMany p{};
+  const long long* w = static_cast<const long long*>(words);
+  long long ntiles = 0, nwarps = 0, rows = 0;
+  for (int k = 0; k < nsets; ++k, w += 16) {
+    PlanSet& a = p.set[k];
+    auto ptr = [&](int j) { return reinterpret_cast<void*>(w[j]); };
+    a.off = static_cast<const int*>(ptr(0));
+    a.cnt = static_cast<const int*>(ptr(1));
+    a.mask = static_cast<const bool*>(ptr(2));
+    a.index = static_cast<const int*>(ptr(3));
+    a.src_row = static_cast<int*>(ptr(4));
+    a.pstart = static_cast<int*>(ptr(5));
+    a.pend = static_cast<int*>(ptr(6));
+    a.sr = static_cast<int*>(ptr(7));
+    a.mpos = static_cast<int*>(ptr(8));
+    a.count = static_cast<int*>(ptr(9));
+    a.r_ok = static_cast<bool*>(ptr(10));
+    a.local = static_cast<int*>(ptr(11));
+    a.tsum = static_cast<int*>(ptr(12));
+    const long long S = w[13], out_len = w[15];
+    if (S < 1 || S >= (1ll << 31) || out_len < 0 || out_len >= (1ll << 31) || out_len % A)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.S = static_cast<int>(S);
+    a.mask_len = static_cast<int>(w[14]);
+    a.out_len = static_cast<int>(out_len);
+    a.WR = a.out_len / A;
+    a.nt = static_cast<int>((S + SCAN - 1) / SCAN);
+    a.tile0 = static_cast<int>(ntiles);
+    a.warp0 = static_cast<int>(nwarps);
+    ntiles += a.nt;
+    nwarps += (S + 31) / 32;
+    rows += a.WR;
+  }
+  if (nwarps >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  p.nsets = nsets;
+  p.ntiles = static_cast<int>(ntiles);
+  p.nwarps = static_cast<int>(nwarps);
+  // as many blocks as the largest phase can use, never more than co-resident
+  const long long work =
+      std::max({ntiles, (rows + SCAN - 1) / SCAN, static_cast<long long>(nsets)});
+  grid = static_cast<int>(std::min(static_cast<long long>(grid), work));
+  note_grid(COOP_PLAN, grid);
+  void* args[] = {&p};
+  return launch_error(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(plan_many), grid,
+                                                  SCAN, args, 0,
+                                                  static_cast<cudaStream_t>(stream)));
+}
+
+// The empty kernel: one block of 32 threads, launched plainly or (cooperative
+// != 0) as a cooperative launch; the floor under every launch above.
+extern "C" int simlod_noop(int cooperative, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long* p = static_cast<const long long*>(ptrs);
-  auto ptr = [&](int k) { return reinterpret_cast<void*>(p[k]); };
-  PlanArgs a{};
-  a.off = static_cast<const int*>(ptr(0));
-  a.cnt = static_cast<const int*>(ptr(1));
-  a.mask = static_cast<const bool*>(ptr(2));
-  a.index = static_cast<const int*>(ptr(3));
-  a.S = S;
-  a.mask_len = mask_len;
-  a.WR = out_len / A;
-  a.out_len = out_len;
-  a.nb = (S + SCAN - 1) / SCAN;
-  int* scratch = static_cast<int*>(ptr(4));
-  a.local = scratch;
-  a.bsum = scratch + S;
-  a.total = scratch + S + 2 * a.nb;
-  a.src_row = static_cast<int*>(ptr(5));
-  a.pstart = static_cast<int*>(ptr(6));
-  a.pend = static_cast<int*>(ptr(7));
-  a.r_ok = static_cast<bool*>(ptr(8));
-  a.sr = static_cast<int*>(ptr(9));
-  a.mpos = static_cast<int*>(ptr(10));
-  a.count = static_cast<int*>(ptr(11));
-  int rc;
-  plan_scan<<<a.nb, SCAN, 0, st>>>(a);
-  if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
-  plan_scan_sums<<<1, SCAN, 0, st>>>(a);
-  if ((rc = static_cast<int>(cudaGetLastError())) != 0) return rc;
-  plan_fill<<<blocks_for(S), THREADS, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  void* none[] = {nullptr};
+  if (cooperative)
+    return launch_error(
+        cudaLaunchCooperativeKernel(reinterpret_cast<void*>(noop), 1, 32, none, 0, st));
+  noop<<<1, 32, 0, st>>>();
+  return launch_error(cudaSuccess);
 }
 
 // edl: color, depth bits and out are [width * height] int32 on the device;

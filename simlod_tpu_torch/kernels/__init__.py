@@ -10,13 +10,17 @@ once. There is no fallback: a missing nvcc or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -106,23 +110,150 @@ def data_ptr(t, where: str, what: str, dtype, device, shape=None) -> int:
     raises ValueError unless `t` is a contiguous CUDA tensor of `dtype` (and
     `shape`, when given) on `device`: a wrapper has no CPU fallback (its plain
     version `<name>_reference` takes CPU tensors)."""
+    if t.dtype is dtype and t.get_device() == device.index \
+            and t.is_contiguous() and (shape is None or t.shape == shape):
+        return t.data_ptr()
     if not t.is_cuda:
         raise ValueError(f"{where}: {what} is on {t.device}; the kernel takes "
                          "CUDA tensors (its plain version takes the others)")
     if t.device != device:
         raise ValueError(f"{where}: {what} is on {t.device}, not {device}")
-    if t.dtype != dtype or not t.is_contiguous() \
-            or (shape is not None and tuple(t.shape) != tuple(shape)):
-        raise ValueError(f"{where}: {what} must be a contiguous {dtype}"
-                         + (f" of shape {tuple(shape)}" if shape is not None
-                            else ""))
-    return t.data_ptr()
+    raise ValueError(f"{where}: {what} must be a contiguous {dtype}"
+                     + (f" of shape {tuple(shape)}" if shape is not None else ""))
+
+
+# cudaErrorCooperativeLaunchTooLarge: a cooperative grid larger than what is
+# co-resident on the card
+COOPERATIVE_LAUNCH_TOO_LARGE = 720
+
+
+def check_launch(rc: int, where: str) -> None:
+    """Raises RuntimeError for a nonzero cudaError `rc` that the C entry point
+    of kernel wrapper `where` returned."""
+    if rc == 0:
+        return
+    why = (" (cudaErrorCooperativeLaunchTooLarge: the grid is larger than "
+           "what is co-resident)" if rc == COOPERATIVE_LAUNCH_TOO_LARGE else "")
+    raise RuntimeError(f"{where}: kernel launch failed (cudaError {rc}){why}")
+
+
+# the cooperative kernels of csrc/frame.cu, as simlod_coop_grid numbers them
+COOP_KERNELS = {"plan_blocks": 0, "visibility": 1}
+
+
+def coop_grid(kernel: str, device) -> int:
+    """The largest co-resident grid of a cooperative kernel of csrc/frame.cu
+    on `device` (its blocks per SM times the SMs; the C side computes it once
+    per device and caches it): no launch of it is larger."""
+    g = load().simlod_coop_grid(COOP_KERNELS[kernel], device.index)
+    check_launch(max(-g, 0), f"coop_grid({kernel!r})")
+    return g
+
+
+def last_grid(kernel: str) -> int:
+    """The grid (blocks) that the last launch of a cooperative kernel of
+    csrc/frame.cu in this process used, as the C entry point launched it
+    (0 before its first launch)."""
+    return load().simlod_last_grid(COOP_KERNELS[kernel])
+
+
+def noop(device, cooperative: bool = False) -> None:
+    """Launches the empty kernel of csrc/frame.cu (one block of 32 threads)
+    on the current stream of `device` through the same ctypes path as the
+    frame kernels, plainly or cooperatively: the launch floor. Adds one to
+    `noop.launches`."""
+    rc = load().simlod_noop(int(cooperative), device.index, stream(device))
+    check_launch(rc, "noop")
+    noop.launches += 1
+
+
+noop.launches = 0
+
+# every view of an arena starts on this many bytes
+ALIGN = 16
+
+
+def arena_layout(nbytes, align: int = ALIGN) -> tuple[list[int], int]:
+    """Byte offsets of consecutive chunks of nbytes[i] bytes, each on an
+    `align`-byte boundary, and the arena's size (a multiple of `align`, at
+    least `align`)."""
+    offs, end = [], 0
+    for n in nbytes:
+        start = -(-end // align) * align
+        offs.append(start)
+        end = start + n
+    return offs, max(-(-end // align) * align, align)
+
+
+@functools.lru_cache(maxsize=256)
+def carving(chunks: tuple, views: int) -> tuple:
+    """How `carve` cuts an arena for `chunks` ((numel, dtype), ...), of
+    which the first `views` become tensors (those of one dtype neighbours):
+    each chunk on an ALIGN-byte boundary (arena_layout). Returns (arena
+    bytes, chunk offsets, the byte sizes of one split of the arena into
+    regions, runs): the odd regions are the dtype runs, each with its
+    dtype, the element sizes of one split of it (alignment gaps included)
+    and which parts are chunks (None: all)."""
+    offs, total = arena_layout([n * dt.itemsize for n, dt in chunks])
+    runs, regions, k = [], [], 0
+    while k < views:
+        dt = chunks[k][1]
+        g0 = cur = offs[k]
+        sizes, keep = [], []
+        while k < views and chunks[k][1] == dt:
+            gap = (offs[k] - cur) // dt.itemsize
+            if gap:
+                sizes.append(gap)
+            keep.append(len(sizes))
+            sizes.append(chunks[k][0])
+            cur = offs[k] + chunks[k][0] * dt.itemsize
+            k += 1
+        regions += [g0 - sum(regions), cur - g0]
+        runs.append((dt, tuple(sizes),
+                     None if len(keep) == len(sizes) else tuple(keep)))
+    if len({r[0] for r in runs}) != len(runs):
+        raise ValueError("carving: the chunks of one dtype must be neighbours")
+    regions.append(total - sum(regions))
+    return total, tuple(offs), tuple(regions), tuple(runs)
+
+
+def carve(device, chunks: tuple, views: int):
+    """One torch.empty arena on `device` for `chunks` ((numel, dtype), ...):
+    each chunk starts on an ALIGN-byte boundary and no two overlap. The
+    first `views` chunks (those of one dtype neighbours) become tensors: the
+    arena is split into one region per dtype, each region into its chunks;
+    the others are scratch that only the kernel sees. A wrapper's outputs
+    and scratch in one allocation. Returns (the tensors, the device pointer
+    of every chunk)."""
+    total, offs, regions, runs = carving(chunks, views)
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    out = []
+    for r, (dt, sizes, keep) in zip(buf.split_with_sizes(regions)[1::2],
+                                    runs):
+        parts = r.view(dt).split_with_sizes(sizes)
+        out += parts if keep is None else [parts[j] for j in keep]
+    base = buf.data_ptr()
+    return out, [base + o for o in offs]
+
+
+def stream(device) -> int:
+    """The current CUDA stream of `device` as the raw cudaStream_t (what
+    torch.cuda.current_stream(device).cuda_stream gives, without making a
+    Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def words(values) -> bytes:
+    """int64 words packed for a C entry point's host array."""
+    return struct.pack(f"{len(values)}q", *values)
 
 
 def load() -> ctypes.CDLL:
     """The kernel library, built if needed, with every entry point's signature
     declared."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -134,10 +265,16 @@ def load() -> ctypes.CDLL:
             lib.simlod_splat_samples.argtypes = [p, i, p, p, p, p, p, i, i, i,
                                                  i, p, p, p, p, p]
             lib.simlod_splat_samples.restype = i
-            lib.simlod_visibility.argtypes = [p, p, i, i, p]
+            lib.simlod_coop_grid.argtypes = [i, i]
+            lib.simlod_coop_grid.restype = i
+            lib.simlod_last_grid.argtypes = [i]
+            lib.simlod_last_grid.restype = i
+            lib.simlod_visibility.argtypes = [p, p, i, i, i, p]
             lib.simlod_visibility.restype = i
-            lib.simlod_plan_blocks.argtypes = [p, i, i, i, p]
-            lib.simlod_plan_blocks.restype = i
+            lib.simlod_plan_blocks_many.argtypes = [p, i, i, p]
+            lib.simlod_plan_blocks_many.restype = i
+            lib.simlod_noop.argtypes = [i, i, p]
+            lib.simlod_noop.restype = i
             lib.simlod_edl.argtypes = [p, p, i, i, ctypes.c_float, p, p]
             lib.simlod_edl.restype = i
             _lib = lib

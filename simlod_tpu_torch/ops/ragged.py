@@ -11,13 +11,14 @@ plain element gather through the plan's source indices.
 `expand` its element-wise form: block r of the window is one aligned 128-row
 run of the pool, so a kernel can read a block's rows straight from the pool
 columns (csrc/raster_splat.cu) without the window-sized tensors.
-`plan_blocks` takes the CUDA kernel csrc/frame.cu (`plan_blocks_cuda`) for
-CUDA tensors and its plain PyTorch version `plan_blocks_reference` for CPU
-tensors; both take the frame's selection of segments as a mask.
+`plan_blocks_many` plans several segment sets at once (a frame's sample
+sets): the CUDA kernel csrc/frame.cu (`plan_blocks_many_cuda`, one launch)
+for CUDA tensors, its plain PyTorch version `plan_blocks_many_reference` for
+CPU tensors; `plan_blocks` is one set of it. Both take the frame's selection
+of segments as a mask.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -60,10 +61,24 @@ def plan_blocks(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int,
     segment i is selected where mask[i] (index None) or, with `index`, where
     cnt[i] > 0, index[i] >= 0 and mask[clamp(index[i], 0, len(mask) - 1)]
     (a node mask seen through each segment's node); an unselected segment
-    counts 0. The CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
-    impl = plan_blocks_cuda if src_off.is_cuda else plan_blocks_reference
-    return impl(src_off, cnt, out_len, mask, index)
+    counts 0. plan_blocks_many of one set."""
+    return plan_blocks_many([(src_off, cnt, out_len, mask, index)])[0]
+
+
+def plan_blocks_many(specs) -> list[BlockPlan]:
+    """The plans of several segment sets, one BlockPlan per spec
+    (src_off, cnt, out_len, mask, index) (the arguments of plan_blocks; mask
+    and index may be left out): a frame plans all its sample sets in one
+    call. The CUDA kernel (one launch for all of them) for CUDA tensors, the
+    plain version for CPU tensors."""
+    impl = plan_blocks_many_cuda if specs[0][0].is_cuda \
+        else plan_blocks_many_reference
+    return impl(specs)
+
+
+def plan_blocks_many_reference(specs) -> list[BlockPlan]:
+    """Plain PyTorch version of the plan_blocks_many kernel: plan by plan."""
+    return [plan_blocks_reference(*s) for s in specs]
 
 
 def _select(cnt, mask, index):
@@ -82,7 +97,7 @@ def _select(cnt, mask, index):
 def plan_blocks_reference(src_off: torch.Tensor, cnt: torch.Tensor,
                           out_len: int, mask: torch.Tensor | None = None,
                           index: torch.Tensor | None = None) -> BlockPlan:
-    """Plain PyTorch version of the plan_blocks kernel."""
+    """Plain PyTorch version of one plan of the plan_blocks_many kernel."""
     assert out_len % A == 0
     dev = src_off.device
     S = src_off.shape[0]
@@ -113,70 +128,108 @@ def plan_blocks_reference(src_off: torch.Tensor, cnt: torch.Tensor,
                                        max=out_len))
 
 
+MAX_PLANS = 8     # sets of one launch (csrc/frame.cu MAX_PLANS)
+_SCAN = 1024      # segments of a scan tile (csrc/frame.cu SCAN)
+
+
+def plan_chunks(sizes) -> tuple:
+    """The arena chunks ((numel, dtype), ...) of plan_blocks_many_cuda for
+    sets of (S, WR) = (segments, window blocks): per set src_row, pstart_r,
+    pend_r, sr ([WR] i32 each) and mpos ([S] i32), the sets' counts
+    ([nsets] i32), per set r_ok ([WR] bool), then the scratch, per set
+    local ([S] i32) and the tile sums ([2 ceil(S / 1024) + 1] i32). All but
+    the scratch become tensors."""
+    i32 = torch.int32
+    out = []
+    for S, WR in sizes:
+        out += [(WR, i32)] * 4 + [(S, i32)]
+    out += [(len(sizes), i32)] + [(WR, torch.bool) for _, WR in sizes]
+    for S, _ in sizes:
+        out += [(S, i32), (2 * -(-S // _SCAN) + 1, i32)]
+    return tuple(out)
+
+
+def plan_blocks_many_cuda(specs) -> list[BlockPlan]:
+    """The CUDA kernel csrc/frame.cu (`simlod_plan_blocks_many`) on CUDA
+    tensors; raises for anything else. Same arguments and result as
+    plan_blocks_many_reference, bit for bit, the rows past each set's last
+    segment included (they take segment S - 1's values with r_ok false, as
+    searchsorted puts them there).
+
+    It replaces the plain version's ~20 launches a set (masking, cumsum,
+    searchsorted, WR-sized gathers), which XLA fuses in the JAX package's
+    jitted frame (ragged.plan, simlod_tpu/ops/ragged.py:46), with one
+    cooperative launch for up to MAX_PLANS sets: block scans of the
+    segments' row and selected counts, a scan of each set's tile sums, and a
+    fill in which each warp writes its 32 segments' rows, split by grid
+    barriers. Its bytes (8-13 B read a segment, 17 B written a window block
+    and 4 B a segment) take under a microsecond: the launch bounds it, so the
+    host side is one arena allocation, one check per distinct tensor and one
+    ctypes call. Each call adds one to `plan_blocks_cuda.launches`."""
+    n = len(specs)
+    where, i32 = "plan_blocks_many_cuda", torch.int32
+    if not 0 < n <= MAX_PLANS:
+        raise ValueError(f"{where}: 1 to {MAX_PLANS} sets, not {n}")
+    dev = specs[0][0].device
+    seen = {}
+
+    def ptr(t, what, dtype, S=None):
+        p = seen.get(id(t))
+        if p is None:
+            p = seen[id(t)] = kernels.data_ptr(t, where, what, dtype, dev)
+        if S is not None and t.shape != (S,):
+            raise ValueError(f"{where}: {what} must have shape ({S},)")
+        return p
+
+    sets, sizes = [], []
+    for spec in specs:
+        off, cnt, out_len, mask, index = (*spec, None, None)[:5]
+        S = off.shape[0] if off.dim() == 1 else 0
+        if not 0 < S < (1 << 31) or not 0 <= out_len < (1 << 31) \
+                or out_len % A:
+            raise ValueError(f"{where}: 1 <= S < 2^31 and out_len a multiple "
+                             f"of 128 below 2^31 (S {S}, out_len {out_len})")
+        w = [ptr(off, "src_off", i32, S), ptr(cnt, "cnt", i32, S)]
+        mask_len = 0
+        if mask is None:
+            w += [0, 0]
+        else:
+            mask_len = mask.shape[0] if mask.dim() == 1 else 0
+            if mask_len < 1 or (index is None and mask_len != S):
+                raise ValueError(f"{where}: mask must be a non-empty 1-D bool "
+                                 "tensor, of S entries without index")
+            w += [ptr(mask, "mask", torch.bool),
+                  0 if index is None else ptr(index, "index", i32, S)]
+        sets.append((w, S, mask_len, out_len))
+        sizes.append((S, out_len // A))
+    views, ptrs = kernels.carve(dev, plan_chunks(sizes), 6 * n + 1)
+    words, plans = [], []
+    for k, ((w, S, mask_len, out_len), count) in enumerate(
+            zip(sets, views[5 * n].unbind())):
+        src_row, pstart, pend, sr, mpos = views[5 * k:5 * k + 5]
+        r_ok = views[5 * n + 1 + k]
+        # csrc/frame.cu's word order: the inputs, the set's 5 i32 outputs,
+        # its count, r_ok, its 2 scratch chunks, then the sizes
+        words += [*w, *ptrs[5 * k:5 * k + 5], ptrs[5 * n] + 4 * k,
+                  ptrs[5 * n + 1 + k], *ptrs[6 * n + 1 + 2 * k:6 * n + 3 + 2 * k],
+                  S, mask_len, out_len]
+        plans.append(BlockPlan(src_row=src_row, pstart_r=pstart, pend_r=pend,
+                               r_ok=r_ok, sr=sr, mpos=mpos, out_len=out_len,
+                               count=count))
+    rc = kernels.load().simlod_plan_blocks_many(
+        kernels.words(words), n, dev.index, kernels.stream(dev))
+    kernels.check_launch(rc, where)
+    plan_blocks_cuda.launches += 1
+    return plans
+
+
 def plan_blocks_cuda(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int,
                      mask: torch.Tensor | None = None,
                      index: torch.Tensor | None = None) -> BlockPlan:
-    """The CUDA kernel csrc/frame.cu (`simlod_plan_blocks`) on CUDA tensors;
-    raises for anything else. Same arguments and result as
-    plan_blocks_reference, bit for bit, the rows past the last segment
-    included (they take segment S - 1's values with r_ok false, as
-    searchsorted puts them there).
-
-    It replaces the plain version's ~20 launches (masking, cumsum,
-    searchsorted, WR-sized gathers), which XLA fuses in the JAX package's
-    jitted frame (ragged.plan, simlod_tpu/ops/ragged.py:46), with three: a
-    block scan of the segments' row counts and selected counts, one block's
-    scan of the block sums, and a fill in which each warp writes its 32
-    segments' rows. Bound by memory: 8-13 B read a segment, 17 B written a
-    window block and 4 B a segment. Each call adds one to
-    `plan_blocks_cuda.launches`."""
-    if out_len % A != 0 or out_len < 0:
-        raise ValueError(f"plan_blocks_cuda: out_len {out_len} is not a "
-                         "multiple of 128")
-    dev = src_off.device
-    S = src_off.shape[0]
-    if not 0 < S < (1 << 31) or out_len >= (1 << 31):
-        raise ValueError("plan_blocks_cuda: 1 <= S and out_len < 2^31")
-    i32 = torch.int32
-    arg = lambda t, what, dtype, shape=None: kernels.data_ptr(
-        t, "plan_blocks_cuda", what, dtype, dev, shape)
-    ptrs = [arg(src_off, "src_off", i32, (S,)), arg(cnt, "cnt", i32, (S,))]
-    mask_len = 0
-    if mask is None:
-        ptrs += [0, 0]
-    else:
-        mask_len = mask.shape[0] if mask.ndim == 1 else 0
-        if mask_len < 1:
-            raise ValueError("plan_blocks_cuda: mask must be a non-empty "
-                             "1-D bool tensor")
-        ptrs += [arg(mask, "mask", torch.bool),
-                 0 if index is None else arg(index, "index", i32, (S,))]
-        if index is None and mask_len != S:
-            raise ValueError("plan_blocks_cuda: mask must have S entries "
-                             "without index")
-    WR = out_len // A
-    nb = -(-S // 1024)
-    scratch = torch.empty(S + 2 * nb + 1, dtype=i32, device=dev)
-    rows = [torch.empty(WR, dtype=i32, device=dev) for _ in range(3)]
-    r_ok = torch.empty(WR, dtype=torch.bool, device=dev)
-    sr = torch.empty(WR, dtype=i32, device=dev)
-    mpos = torch.empty(S, dtype=i32, device=dev)
-    count = torch.empty((), dtype=i32, device=dev)
-    ptrs += [scratch.data_ptr(), *(t.data_ptr() for t in rows),
-             r_ok.data_ptr(), sr.data_ptr(), mpos.data_ptr(),
-             count.data_ptr()]
-    lib = kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.simlod_plan_blocks((ctypes.c_int64 * len(ptrs))(*ptrs), S,
-                                    mask_len, out_len, stream)
-    if rc != 0:
-        raise RuntimeError(f"plan_blocks_cuda: kernel launch failed "
-                           f"(cudaError {rc})")
-    plan_blocks_cuda.launches += 1
-    return BlockPlan(src_row=rows[0], pstart_r=rows[1], pend_r=rows[2],
-                     r_ok=r_ok, sr=sr, mpos=mpos, out_len=out_len,
-                     count=count)
+    """plan_blocks_many_cuda of one set. `plan_blocks_cuda.launches` counts
+    the plan kernel's launches: one per batched call, however many sets it
+    plans."""
+    return plan_blocks_many_cuda([(src_off, cnt, out_len, mask, index)])[0]
 
 
 plan_blocks_cuda.launches = 0

@@ -211,27 +211,33 @@ def _pool_take(mask, stored_cnt, budgets):
     return torch.where(mask, torch.minimum(stored_cnt, budgets), 0)
 
 
-def _prefix_plan(off, cnt, take, window: int):
-    """Block plan of each node's first `take` pooled rows in a window of
-    (window // 128) * 128 rows (its `count`: the samples in the window)."""
+def pool_point_spec(pool: DrawPool, take: torch.Tensor, window: int) -> tuple:
+    """The ragged.plan_blocks_many spec of each node's first `take` pooled
+    points in a window of (window // 128) * 128 rows (its plan's `count`:
+    the samples in the window)."""
+    return _prefix_spec(pool.pt_off, pool.pt_cnt, take, window)
+
+
+def pool_voxel_spec(pool: DrawPool, take: torch.Tensor, window: int) -> tuple:
+    """pool_point_spec for the pooled voxels."""
+    return _prefix_spec(pool.vx_off, pool.vx_cnt, take, window)
+
+
+def _prefix_spec(off, cnt, take, window: int) -> tuple:
     N = off.shape[0]
-    take = torch.minimum(take[:N], cnt)
-    W = (window // 128) * 128
-    return ragged.plan_blocks(off, take, W)
+    return (off, torch.minimum(take[:N], cnt), (window // 128) * 128)
 
 
-def gather_pool_points(cfg: EngineConfig, state: OctreeState, pool: DrawPool,
-                       take: torch.Tensor, window: int):
-    """Budgeted prefix of pooled leaf points -> raster.SampleSource (hash
+def pool_point_source(state: OctreeState, pool: DrawPool,
+                      plan: ragged.BlockPlan):
+    """The samples of a pool_point_spec plan -> raster.SampleSource (hash
     order makes each prefix a deterministic uniform subsample)."""
-    p = _prefix_plan(pool.pt_off, pool.pt_cnt, take, window)
-    return raster.point_source(state, p, pool.p_w0, pool.p_w1, pool.p_w2,
-                               pool.p_rgba, None, p.count)
+    return raster.point_source(state, plan, pool.p_w0, pool.p_w1, pool.p_w2,
+                               pool.p_rgba, None, plan.count)
 
 
-def gather_pool_voxels(cfg: EngineConfig, state: OctreeState, pool: DrawPool,
-                       take: torch.Tensor, window: int):
-    """Budgeted prefix of pooled inner-node voxels -> raster.SampleSource."""
-    p = _prefix_plan(pool.vx_off, pool.vx_cnt, take, window)
-    return raster.voxel_source(state, p, pool.v_k0, pool.v_k1, pool.v_k2l,
-                               pool.v_rgba, p.count)
+def pool_voxel_source(state: OctreeState, pool: DrawPool,
+                      plan: ragged.BlockPlan):
+    """The samples of a pool_voxel_spec plan -> raster.SampleSource."""
+    return raster.voxel_source(state, plan, pool.v_k0, pool.v_k1, pool.v_k2l,
+                               pool.v_rgba, plan.count)

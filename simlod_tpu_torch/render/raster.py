@@ -88,14 +88,18 @@ def voxel_source(state: OctreeState, plan: ragged.BlockPlan, k0, k1, k2l,
                         state.box_min, state.cube_size, None, count)
 
 
-def gather_point_samples(cfg: EngineConfig, state: OctreeState,
-                         emitted: torch.Tensor,
-                         window: int | None = None) -> SampleSource:
-    """The live segments of emitted nodes, planned into a dense sample
-    window (plan_blocks selects them through seg_node)."""
+def point_spec(cfg: EngineConfig, state: OctreeState, emitted: torch.Tensor,
+               window: int | None = None) -> tuple:
+    """The ragged.plan_blocks_many spec of a frame's point samples: the live
+    segments of emitted nodes (selected through seg_node) in a dense window
+    of (window or max_render_points) rounded down to 128 rows."""
     W = ((window or cfg.max_render_points) // 128) * 128
-    plan = ragged.plan_blocks(state.seg_off, state.seg_cnt, W, mask=emitted,
-                              index=state.seg_node)
+    return (state.seg_off, state.seg_cnt, W, emitted, state.seg_node)
+
+
+def state_point_source(state: OctreeState,
+                       plan: ragged.BlockPlan) -> SampleSource:
+    """The point samples of a point_spec plan, over the octree's columns."""
     return point_source(state, plan, state.pt_w0, state.pt_w1, state.pt_w2,
                         state.pt_rgba, state.seg_node, plan.count)
 
@@ -121,14 +125,19 @@ def voxel_positions_from_keys(box_min, cube_size, k0, k1, k2l):
     return x, y, z, lvl
 
 
-def gather_voxel_samples(cfg: EngineConfig, state: OctreeState,
-                         emitted: torch.Tensor,
-                         window: int | None = None) -> SampleSource:
-    """Emitted nodes' voxel ranges (compacted CSR), planned into a dense
-    sample window; positions are the cell centers of the global prefix
-    keys."""
+def voxel_spec(cfg: EngineConfig, state: OctreeState, emitted: torch.Tensor,
+               window: int | None = None) -> tuple:
+    """The ragged.plan_blocks_many spec of a frame's voxel samples: emitted
+    nodes' voxel ranges (compacted CSR) in a dense window of (window or
+    max_render_voxels) rounded down to 128 rows."""
     W = ((window or cfg.max_render_voxels) // 128) * 128
-    plan = ragged.plan_blocks(state.vox_voff, state.vox_vcnt, W, mask=emitted)
+    return (state.vox_voff, state.vox_vcnt, W, emitted, None)
+
+
+def state_voxel_source(state: OctreeState,
+                       plan: ragged.BlockPlan) -> SampleSource:
+    """The voxel samples of a voxel_spec plan, over the octree's columns;
+    positions are the cell centers of the global prefix keys."""
     return voxel_source(state, plan, state.vox_k0, state.vox_k1,
                         state.vox_k2l, state.vox_rgba, plan.count)
 

@@ -18,6 +18,7 @@ import torch
 
 from ..config import EngineConfig, Uniforms
 from ..octree.structures import OctreeState
+from ..ops import ragged
 from . import drawpool, lines, raster, raster_tiles, visibility
 
 
@@ -60,8 +61,11 @@ def frame_samples(cfg: EngineConfig, state: OctreeState, uniforms: Uniforms,
         over = over | (state.num_segments > seg_window)
     state = _trim_directories(state, node_window, seg_window)
     vis = visibility.compute_visibility(state, uniforms)
-    pts = raster.gather_point_samples(cfg, state, vis.emitted, point_window)
-    vox = raster.gather_voxel_samples(cfg, state, vis.emitted, voxel_window)
+    pp, vp = ragged.plan_blocks_many([
+        raster.point_spec(cfg, state, vis.emitted, point_window),
+        raster.voxel_spec(cfg, state, vis.emitted, voxel_window)])
+    pts = raster.state_point_source(state, pp)
+    vox = raster.state_voxel_source(state, vp)
     # honour showPoints: drop both sample sets (render.cu:214)
     return vis, [s._replace(show=uniforms.show_points) for s in (pts, vox)], \
         over
@@ -182,10 +186,15 @@ def pooled_frame_samples(cfg: EngineConfig, state: OctreeState,
     state = _trim_directories(state, node_window, seg_window)
     pool = _trim_pool(pool, node_window)
     vis = visibility.compute_visibility(state, uniforms, pool, cfg)
-    pp = drawpool.gather_pool_points(cfg, state, pool, vis.take_p, pool_pw)
-    pv = drawpool.gather_pool_voxels(cfg, state, pool, vis.take_v, pool_vw)
-    ep = raster.gather_point_samples(cfg, state, vis.exact_p, exact_pw)
-    ev = raster.gather_voxel_samples(cfg, state, vis.exact_v, exact_vw)
+    plans = ragged.plan_blocks_many([
+        drawpool.pool_point_spec(pool, vis.take_p, pool_pw),
+        drawpool.pool_voxel_spec(pool, vis.take_v, pool_vw),
+        raster.point_spec(cfg, state, vis.exact_p, exact_pw),
+        raster.voxel_spec(cfg, state, vis.exact_v, exact_vw)])
+    pp = drawpool.pool_point_source(state, pool, plans[0])
+    pv = drawpool.pool_voxel_source(state, pool, plans[1])
+    ep = raster.state_point_source(state, plans[2])
+    ev = raster.state_voxel_source(state, plans[3])
     sets = [s._replace(show=uniforms.show_points) for s in (pp, pv, ep, ev)]
     # any sample set reaching its window dropped drawn samples (>=, where the
     # exact path's test is >: the JAX package's two tests)

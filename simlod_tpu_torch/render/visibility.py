@@ -13,7 +13,6 @@ return the pooled frame's per-node takes and exact masks
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -150,62 +149,57 @@ def compute_visibility_cuda(state: OctreeState, uniforms: Uniforms,
     It replaces the ~300 torch launches of the plain version (8 corners x
     ~30 elementwise ops, the frustum test, the parent gather, five sums, and
     with a pool the budgets, masks and takes) that XLA fuses in the JAX
-    package's jitted frame (simlod_tpu/render/visibility.py:42): one thread
-    per node slot, bound by memory (32 B read a node, 11 B written; with a
-    pool 8 B more read and 10 B more written). The frame's scalars and the
-    frustum planes (computed on the host, frustum.frustum_planes_host) come
-    by value, num_nodes through a pointer: no host read. Each call adds one
-    to `compute_visibility_cuda.launches`."""
+    package's jitted frame (simlod_tpu/render/visibility.py:42) with one
+    cooperative launch: one thread per node slot, the counts as partial rows
+    summed after a grid barrier (no memset). Its bytes (32 B read a node, 11
+    B written; with a pool 8 B more read and 10 B more written) take under a
+    microsecond at a frame's 8,192 slots: the launch bounds it, so the host
+    side is one check per column, a torch.empty per output and one for the
+    partial rows (chip_smoke's host_breakdown times an arena against them:
+    no clear gain), and one ctypes call. The frame's scalars and frustum
+    planes come by value, packed once per frame by Uniforms.make
+    (UniformsHost.vis_floats), num_nodes through a pointer: no host read.
+    Each call adds one to `compute_visibility_cuda.launches`."""
     dev = state.child_base.device
     n = state.child_base.shape[0]
-    i32, f32, b8 = torch.int32, torch.float32, torch.bool
-    arg = lambda t, what, dtype, shape: kernels.data_ptr(
-        t, "compute_visibility_cuda", what, dtype, dev, shape)
-    ptrs = [arg(getattr(state, f), f, i32, (n,)) for f in _NODE_COLUMNS]
-    ptrs += [arg(state.num_nodes, "num_nodes", i32, ()),
-             arg(state.box_min, "box_min", f32, (3,)),
-             arg(state.cube_size, "cube_size", f32, ())]
-    out = dict(emitted=torch.empty(n, dtype=b8, device=dev),
-               visible=torch.empty(n, dtype=b8, device=dev),
-               is_large=torch.empty(n, dtype=b8, device=dev),
-               dx=torch.empty(n, dtype=f32, device=dev),
-               dy=torch.empty(n, dtype=f32, device=dev))
-    counts = torch.empty(5, dtype=i32, device=dev)
-    pool_cnts, extra = [0, 0], {}
-    if pool is not None:
+    i32, f32 = torch.int32, torch.float32
+    where = "compute_visibility_cuda"
+    shape = (n,)
+    ptrs = [kernels.data_ptr(getattr(state, f), where, f, i32, dev, shape)
+            for f in _NODE_COLUMNS]
+    ptrs += [kernels.data_ptr(state.num_nodes, where, "num_nodes", i32, dev,
+                              ()),
+             kernels.data_ptr(state.box_min, where, "box_min", f32, dev, (3,)),
+             kernels.data_ptr(state.cube_size, where, "cube_size", f32, dev,
+                              ())]
+    pooled = pool is not None
+    if pooled:
         if cfg is None:
-            raise ValueError("compute_visibility_cuda: a pool needs cfg "
-                             "(its draw_cap)")
-        pool_cnts = [arg(pool.pt_cnt, "pool.pt_cnt", i32, (n,)),
-                     arg(pool.vx_cnt, "pool.vx_cnt", i32, (n,))]
-        extra = dict(take_p=torch.empty(n, dtype=i32, device=dev),
-                     take_v=torch.empty(n, dtype=i32, device=dev),
-                     exact_p=torch.empty(n, dtype=b8, device=dev),
-                     exact_v=torch.empty(n, dtype=b8, device=dev))
-    ptrs += pool_cnts + [t.data_ptr() for t in out.values()] \
-        + [counts.data_ptr()] + ([t.data_ptr() for t in extra.values()]
-                                 or [0] * 4)
-    h = uniforms.host
-    floats = (*h.transform_update_bound,
-              *frustum.frustum_planes_host(h.transform_update_bound)
-              .reshape(-1).tolist(),
-              h.width, h.height, h.min_node_size, h.point_budget)
-    lib = kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.simlod_visibility(
-            (ctypes.c_int64 * len(ptrs))(*ptrs),
-            (ctypes.c_float * len(floats))(*floats), n,
-            cfg.draw_cap if cfg is not None else 0, stream)
-    if rc != 0:
-        raise RuntimeError("compute_visibility_cuda: kernel launch failed "
-                           f"(cudaError {rc})")
+            raise ValueError(f"{where}: a pool needs cfg (its draw_cap)")
+        ptrs += [kernels.data_ptr(pool.pt_cnt, where, "pool.pt_cnt", i32, dev,
+                                  shape),
+                 kernels.data_ptr(pool.vx_cnt, where, "pool.vx_cnt", i32, dev,
+                                  shape)]
+    else:
+        ptrs += [0, 0]
+    # VisArgs' outputs: emitted, visible, is_large, dx, dy, counts, (take_p,
+    # take_v, exact_p, exact_v), then one partial row of 5 counts for each
+    # of the ceil(n / 256) blocks (at most 4096) a launch may have
+    b8 = torch.bool
+    out = [torch.empty(n, dtype=dt, device=dev)
+           for dt in (b8, b8, b8, f32, f32)]
+    counts = torch.empty(5, dtype=i32, device=dev)
+    extra = [torch.empty(n, dtype=dt, device=dev)
+             for dt in (i32, i32, b8, b8)] if pooled else []
+    partials = torch.empty(5 * min(-(-n // 256), 4096), dtype=i32, device=dev)
+    ptrs += [t.data_ptr() for t in (*out, counts)] \
+        + ([t.data_ptr() for t in extra] or [0] * 4) + [partials.data_ptr()]
+    rc = kernels.load().simlod_visibility(
+        kernels.words(ptrs), uniforms.host.vis_floats, n,
+        cfg.draw_cap if cfg is not None else 0, dev.index, kernels.stream(dev))
+    kernels.check_launch(rc, where)
     compute_visibility_cuda.launches += 1
-    return Visibility(**out, num_visible_nodes=counts[0],
-                      num_visible_inner=counts[1],
-                      num_visible_leaves=counts[2],
-                      num_visible_points=counts[3],
-                      num_visible_voxels=counts[4], **extra)
+    return Visibility(*out, *counts.unbind(), *extra)
 
 
 compute_visibility_cuda.launches = 0

@@ -18,7 +18,11 @@ package's jitted frame; each has a plain PyTorch version that the CPU runs:
     channel (XLA and torch round log2 / exp differently), and against the
     formula it had before it became a kernel's plain version: bit-equal;
   - frustum.frustum_planes_host (the planes the visibility kernel takes by
-    value) against frustum.frustum_planes and JAX's: bit-equal.
+    value) against frustum.frustum_planes and JAX's: bit-equal; and the
+    planes and packed arguments Uniforms.make computes once per frame;
+  - plan_blocks_many (a frame's sets in one call) against JAX ragged.plan
+    set by set, 1 to 8 sets; the arena layout of its CUDA wrapper as a pure
+    function; a CPU frame plans its sets in one call.
 The card-only comparisons (kernel against plain version, bit-equal) are in
 tests/test_torch_port.py under the `cuda` marker.
 """
@@ -35,6 +39,7 @@ from simlod_tpu.render import drawpool as jdp
 from simlod_tpu.render import frustum as jfrustum
 from simlod_tpu.render import raster as jr
 from simlod_tpu.render import visibility as jvis
+from simlod_tpu_torch import kernels
 from simlod_tpu_torch.config import (EngineConfig as TCfg, Settings as TSet,
                                      Uniforms as TUni)
 from simlod_tpu_torch.engine import Engine
@@ -167,31 +172,28 @@ PLAN_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(PLAN_CASES))
-def test_plan_blocks_selection_matches_jax_plan(case):
-    S, nodes, out_len = PLAN_CASES[case]
-    rng = np.random.default_rng(len(case))
-    off, cnt, node = _segments(rng, S, nodes or 8)
-    t = torch.from_numpy
+def _select_case(rng, S, nodes, off, cnt, node):
+    """(mask, index, selected) of a PLAN_CASES selection kind."""
     if nodes == 0:             # no mask: every segment as it is
-        mask, index, sel = None, None, np.ones(S, bool)
-    elif nodes is None:        # one entry per segment (voxel sets, per node)
+        return None, None, np.ones(S, bool)
+    if nodes is None:          # one entry per segment (voxel sets, per node)
         mask = rng.random(S) < 0.6
-        index, sel = None, mask
-    else:                      # a node mask through seg_node (point sets)
-        mask = rng.random(nodes) < 0.6
-        index = node
-        sel = (cnt > 0) & (node >= 0) & mask[np.clip(node, 0, nodes - 1)]
+        return mask, None, mask
+    mask = rng.random(nodes) < 0.6   # a node mask through seg_node (points)
+    sel = (cnt > 0) & (node >= 0) & mask[np.clip(node, 0, nodes - 1)]
+    return mask, node, sel
+
+
+def _check_plan(bp, off, cnt, sel, out_len, truncating=None):
+    """A block plan of the selected segments against the plain version on
+    inputs masked beforehand (every field bit-equal) and against JAX
+    ragged.plan on them (the rows the plan draws)."""
+    t = torch.from_numpy
     counts = np.where(sel, cnt, 0).astype(np.int32)
     offs = np.where(sel, off, 0).astype(np.int32)
-    bp = tragged.plan_blocks(t(off), t(cnt), out_len,
-                             None if mask is None else t(mask),
-                             None if index is None else t(index))
-    # the plain version on inputs masked beforehand: every field bit-equal
     pre = tragged.plan_blocks_reference(t(offs), t(counts), out_len)
     for f in ("src_row", "pstart_r", "pend_r", "r_ok", "sr", "mpos", "count"):
         assert torch.equal(getattr(bp, f), getattr(pre, f)), f
-    # the JAX plan on the same masked inputs: the rows the plan draws
     jp = jragged.plan(jnp.asarray(offs), jnp.asarray(counts), out_len)
     ok = np.asarray(jp.r_ok)
     np.testing.assert_array_equal(bp.r_ok.numpy(), ok)
@@ -206,10 +208,131 @@ def test_plan_blocks_selection_matches_jax_plan(case):
     np.testing.assert_array_equal(el.seg_of.numpy()[valid],
                                   np.asarray(jp.seg_of)[valid])
     assert int(bp.count) == min(int(counts.sum()), out_len)
-    if case.endswith("truncating"):
-        assert int(counts.sum()) > out_len and ok.all()
-    else:
-        assert not ok.all()
+    if truncating is not None:
+        assert (int(counts.sum()) > out_len) == truncating
+        assert ok.all() == truncating
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_blocks_selection_matches_jax_plan(case):
+    S, nodes, out_len = PLAN_CASES[case]
+    rng = np.random.default_rng(len(case))
+    off, cnt, node = _segments(rng, S, nodes or 8)
+    mask, index, sel = _select_case(rng, S, nodes, off, cnt, node)
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    bp = tragged.plan_blocks(t(off), t(cnt), out_len, t(mask), t(index))
+    _check_plan(bp, off, cnt, sel, out_len, case.endswith("truncating"))
+
+
+# sets planned in one plan_blocks_many call: (segments, node mask entries as
+# in PLAN_CASES or "none" for a mask that selects nothing, window rows)
+MANY_SETS = {
+    "tiles": (2500, 64, 1 << 19),          # several 1024-segment tiles
+    "one_segment": (1, None, 1 << 10),
+    "none_selected": (700, "none", 1 << 14),
+    "truncating": (1500, 64, 128 * 60),    # a window under the selection
+    "unmasked": (3000, 0, 1 << 20),
+}
+MANY_CASES = {
+    "1_set": ["tiles"],
+    "2_sets": ["tiles", "one_segment"],
+    "4_sets": ["truncating", "none_selected", "unmasked", "one_segment"],
+    "8_sets": ["tiles", "one_segment", "none_selected", "truncating",
+               "unmasked", "one_segment", "tiles", "truncating"],
+}
+
+
+@pytest.mark.parametrize("case", list(MANY_CASES))
+def test_plan_blocks_many_matches_jax_plan_set_by_set(case):
+    rng = np.random.default_rng(len(case))
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    specs, want = [], []
+    for name in MANY_CASES[case]:
+        S, nodes, out_len = MANY_SETS[name]
+        off, cnt, node = _segments(rng, S, 64)
+        if nodes == "none":
+            mask, index, sel = np.zeros(S, bool), None, np.zeros(S, bool)
+        else:
+            mask, index, sel = _select_case(rng, S, nodes, off, cnt, node)
+        specs.append((t(off), t(cnt), out_len, t(mask), t(index)))
+        want.append((off, cnt, sel, out_len, name == "truncating"))
+    plans = tragged.plan_blocks_many(specs)
+    assert len(plans) == len(specs)
+    for bp, w in zip(plans, want):
+        _check_plan(bp, *w)
+    assert sum(int(bp.count) for bp in plans) > 0
+
+
+@pytest.mark.parametrize("nsets", range(1, tragged.MAX_PLANS + 1))
+def test_plan_arena_views_are_aligned_and_disjoint(nsets):
+    """The layout of plan_blocks_many_cuda's arena (one chunk per output and
+    scratch array), as a pure function and carved on the CPU: every view on
+    an ALIGN-byte boundary, of its chunk's size and dtype, none overlapping,
+    all inside the arena."""
+    rng = np.random.default_rng(nsets)
+    sizes = [(int(rng.integers(1, 5000)), int(rng.integers(0, 3000)))
+             for _ in range(nsets)]
+    chunks = tragged.plan_chunks(sizes)
+    assert len(chunks) == 8 * nsets + 1
+    nbytes = [n * dt.itemsize for n, dt in chunks]
+    offs, total = kernels.arena_layout(nbytes)
+    spans = sorted(zip(offs, nbytes))
+    assert all(o % kernels.ALIGN == 0 for o in offs)
+    assert all(a + n <= b for (a, n), (b, _) in zip(spans, spans[1:]))
+    assert spans[-1][0] + spans[-1][1] <= total and total % kernels.ALIGN == 0
+    # the outputs become tensors, the scratch only pointers
+    nviews = 6 * nsets + 1
+    views, ptrs = kernels.carve(torch.device("cpu"), chunks, nviews)
+    assert len(views) == nviews and len(ptrs) == len(chunks)
+    base = ptrs[0] - offs[0]
+    assert [p - base for p in ptrs] == offs
+    ranges = []
+    for v, p, (n, dt) in zip(views, ptrs, chunks):
+        assert v.dtype == dt and tuple(v.shape) == (n,) and v.is_contiguous()
+        assert v.data_ptr() == p or n == 0
+        ranges.append((p, p + n * dt.itemsize))
+    ranges += [(p, p + n * dt.itemsize)
+               for p, (n, dt) in zip(ptrs[nviews:], chunks[nviews:])]
+    ranges.sort()
+    assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(p % kernels.ALIGN == 0 for p in ptrs)
+    assert ranges[-1][1] - base <= total
+
+
+def test_arena_layout_pads_each_chunk_to_the_alignment():
+    assert kernels.arena_layout([5, 16, 0, 3]) == ([0, 16, 32, 32], 48)
+    assert kernels.arena_layout([]) == ([], kernels.ALIGN)
+    assert kernels.arena_layout([1, 1], align=256) == ([0, 256], 512)
+
+
+def test_a_failed_launch_raises():
+    kernels.check_launch(0, "plan_blocks_many_cuda")
+    with pytest.raises(RuntimeError, match="CooperativeLaunchTooLarge"):
+        kernels.check_launch(kernels.COOPERATIVE_LAUNCH_TOO_LARGE,
+                             "plan_blocks_many_cuda")
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        kernels.check_launch(1, "compute_visibility_cuda")
+
+
+@pytest.mark.parametrize("camera", list(CAMERAS))
+def test_uniforms_host_planes_match_the_device_planes(camera):
+    """The planes and the visibility kernel's packed arguments that
+    Uniforms.make computes once per frame: the planes bit-equal to
+    frustum.frustum_planes of the frozen transform."""
+    t = CAMERAS[camera]()
+    _, tu = _uniforms(t, 0.5)
+    want = tfrustum.frustum_planes(tu.transform_update_bound).numpy()
+    host = np.array(tu.host.planes, np.float32)
+    np.testing.assert_array_equal(host.view(np.int32),
+                                  want.reshape(-1).view(np.int32))
+    packed = np.frombuffer(tu.host.vis_floats, np.float32)
+    assert packed.shape == (44,)
+    np.testing.assert_array_equal(
+        packed[:16].view(np.int32),
+        tu.transform_update_bound.numpy().reshape(-1).view(np.int32))
+    np.testing.assert_array_equal(packed[16:40].view(np.int32),
+                                  host.view(np.int32))
+    np.testing.assert_array_equal(packed[40:], np.float32([W, H, 8.0, 0.5]))
 
 
 def _old_edl(color, depth_bits, uniforms, width, height):
@@ -276,12 +399,16 @@ def _wrapper_calls(ts, tu, tpool):
         "plan_blocks": (tragged.plan_blocks_cuda,
                         lambda: tragged.plan_blocks_cuda(
                             ts.seg_off, ts.seg_cnt, 1 << 12)),
+        "plan_blocks_many": (tragged.plan_blocks_cuda,
+                             lambda: tragged.plan_blocks_many_cuda([
+                                 (ts.seg_off, ts.seg_cnt, 1 << 12),
+                                 (ts.vox_voff, ts.vox_vcnt, 1 << 12)])),
         "edl": (tr.edl_cuda, lambda: tr.edl_cuda(col, col, tu, W, H)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["visibility", "visibility_pooled",
-                                    "plan_blocks", "edl"])
+                                    "plan_blocks", "plan_blocks_many", "edl"])
 def test_kernel_wrappers_raise_on_cpu_tensors(scene, kernel):
     _, ts, _, tpool = scene
     _, tu = _uniforms(look_at_cloud().transform(), 1.0)
@@ -334,4 +461,25 @@ def test_cpu_frames_take_the_plain_versions(monkeypatch, cloud, budget):
     assert calls["edl_reference"] >= frames + 1
     assert st.num_visible_points + st.num_visible_voxels > 0
     assert eng.report()["num_points"] == 30_000
+    eng.stream.stop()
+
+
+@pytest.mark.parametrize("budget", [0.0, 1.0])
+def test_cpu_frame_plans_its_sets_in_one_call(monkeypatch, cloud, budget):
+    """A render frame, exact (2 sets) and pooled (4 sets), plans its sample
+    sets in one plan_blocks_many call."""
+    eng = Engine(TCfg(**dict(dataclasses.asdict(CFG), point_capacity=1 << 17,
+                             voxel_capacity=1 << 19, step_points=1 << 13,
+                             spill_capacity=1 << 13)),
+                 TSet(min_node_size=8.0, point_budget=budget), device="cpu")
+    eng.open([cloud])
+    eng.load_all()
+    eng.render(W, H)          # builds the pool, sizes the windows
+    calls = []
+    orig = tragged.plan_blocks_many
+    monkeypatch.setattr(tragged, "plan_blocks_many",
+                        lambda specs: calls.append(len(specs)) or orig(specs))
+    img, st = eng.render(W, H)
+    assert calls == [4 if budget else 2]
+    assert st.num_visible_points + st.num_visible_voxels > 0
     eng.stream.stop()

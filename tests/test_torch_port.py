@@ -448,6 +448,97 @@ def test_plan_blocks_kernel_matches_plain_version(select, S, out_len):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nsets", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [8192, 327680])
+def test_plan_blocks_many_kernel_matches_plain_version(S, nsets):
+    """One cooperative launch plans every set, bit-equal to the plain
+    version on every field: at a frame's 8,192 segments and at shard 0's
+    327,680 (320 tiles a set), selections by node, per segment, none and
+    nothing selected, windows that hold the selection and ones that
+    truncate it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    from simlod_tpu_torch.ops import ragged
+    rng = np.random.default_rng(S + nsets)
+    f = lambda a: torch.from_numpy(a).cuda()
+    specs = []
+    for k in range(nsets):
+        off, cnt, node = _segments(rng, S, 4096)
+        kind = k % 4
+        if kind == 0:
+            mask, index = f(rng.random(4096) < 0.6), f(node)
+        elif kind == 1:
+            mask, index = f(rng.random(S) < 0.6), None
+        elif kind == 2:
+            mask = index = None
+        else:
+            mask, index = torch.zeros(S, dtype=torch.bool, device="cuda"), None
+        total = int(cnt.sum()) + 256 * S
+        out_len = 128 * (total // 128 // (3 if k % 3 == 1 else 1) + 1)
+        specs.append((f(off), f(cnt), out_len, mask, index))
+    before = ragged.plan_blocks_cuda.launches
+    got = ragged.plan_blocks_many_cuda(specs)
+    want = ragged.plan_blocks_many_reference(specs)
+    torch.cuda.synchronize()
+    assert ragged.plan_blocks_cuda.launches == before + 1
+    dev = specs[0][0].device
+    assert 1 <= kernels.last_grid("plan_blocks") \
+        <= kernels.coop_grid("plan_blocks", dev)
+    for g, w in zip(got, want):
+        for name in ("src_row", "pstart_r", "pend_r", "r_ok", "sr", "mpos",
+                     "count"):
+            assert torch.equal(getattr(g, name), getattr(w, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooled", [False, True])
+def test_visibility_kernel_twice_back_to_back(card_engine, pooled):
+    """No state carries over between calls (no memset, no counter left on
+    the card): two calls in a row give equal counts, equal to the plain
+    version's."""
+    from simlod_tpu_torch.render import visibility
+    eng = card_engine
+    eng.settings = Settings(min_node_size=8.0,
+                            point_budget=1.0 if pooled else 0.0)
+    eng.render(160, 120)
+    u = eng.uniforms(160, 120)
+    pool = eng._draw_pool if pooled else None
+    a = visibility.compute_visibility_cuda(eng.state, u, pool, eng.cfg)
+    b = visibility.compute_visibility_cuda(eng.state, u, pool, eng.cfg)
+    want = visibility.compute_visibility_reference(eng.state, u, pool,
+                                                   eng.cfg)
+    torch.cuda.synchronize()
+    for f in ("num_visible_nodes", "num_visible_inner", "num_visible_leaves",
+              "num_visible_points", "num_visible_voxels"):
+        assert int(getattr(a, f)) == int(getattr(b, f)) \
+            == int(getattr(want, f)), f
+    assert int(a.num_visible_nodes) > 0
+    assert (a.take_p is None) == (not pooled)
+    n = eng.state.child_base.shape[0]
+    assert kernels.last_grid("visibility") == min(
+        kernels.coop_grid("visibility", eng.state.child_base.device),
+        -(-n // 256))
+
+
+@pytest.mark.cuda
+def test_cooperative_grids_and_the_launch_floor():
+    """The co-resident grids are positive and the empty kernel launches
+    plainly and cooperatively through the ctypes path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, threads in (("plan_blocks", 1024), ("visibility", 256)):
+        g = kernels.coop_grid(name, dev)
+        assert sms <= g <= sms * 2048 // threads, (name, g)
+    before = kernels.noop.launches
+    kernels.noop(dev)
+    kernels.noop(dev, cooperative=True)
+    torch.cuda.synchronize()
+    assert kernels.noop.launches == before + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("strength", [0.4, 1.5])
 def test_edl_kernel_matches_plain_version(card_engine, strength):
     import dataclasses
@@ -493,8 +584,8 @@ def test_card_frames_launch_the_frame_kernels(card_engine, budget):
     img, st = eng.render(160, 120)
     torch.cuda.synchronize()
     n = [f.launches - b for f, b in zip(fns, before)]
-    # a pooled frame may re-probe its windows (one more visibility launch
-    # and one more read)
-    assert n[1:] == [4 if budget else 2, 1, 1] and 1 <= n[0] <= 1 + budget
+    # one plan launch for the frame's 2 or 4 sets; a pooled frame may re-probe
+    # its windows (one more visibility launch and one more read)
+    assert n[1:] == [1, 1, 1] and 1 <= n[0] <= 1 + budget
     assert 2 <= eng.host_syncs - syncs <= 2 + budget
     assert st.num_visible_points + st.num_visible_voxels > 0

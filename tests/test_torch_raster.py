@@ -28,6 +28,7 @@ from simlod_tpu_torch.config import EngineConfig as TCfg, Settings as TSet, Unif
 from simlod_tpu_torch.formats import synthetic
 from simlod_tpu_torch.octree import build as tb
 from simlod_tpu_torch.octree.structures import init_state, state_to_numpy
+from simlod_tpu_torch.ops import ragged as tragged
 from simlod_tpu_torch.render import frustum as tf
 from simlod_tpu_torch.render import raster as tr
 from simlod_tpu_torch.render import raster_tiles as tt
@@ -106,10 +107,12 @@ def test_visibility_and_gather(states, yaw, pitch):
     for f in a._fields:
         _eq(getattr(a, f), getattr(b, f))
     assert int(a.num_visible_points) + int(a.num_visible_voxels) > 0
-    for jg, tg in ((jr.gather_point_samples, tr.gather_point_samples),
-                   (jr.gather_voxel_samples, tr.gather_voxel_samples)):
+    for jg, spec, source in (
+            (jr.gather_point_samples, tr.point_spec, tr.state_point_source),
+            (jr.gather_voxel_samples, tr.voxel_spec, tr.state_voxel_source)):
+        plan = tragged.plan_blocks(*spec(TCfg(**KW), ts, b.emitted))
         js_, ts_ = (jg(JCfg(**KW), js, a.emitted),
-                    tr.materialize(tg(TCfg(**KW), ts, b.emitted)))
+                    tr.materialize(source(ts, plan)))
         v = np.asarray(js_.valid)
         np.testing.assert_array_equal(v, ts_.valid.numpy())
         for f in ("x", "y", "z", "rgba"):
