@@ -103,10 +103,13 @@ versions on their frames' sample sets as phase 4 does. The frame kernels of
 csrc/frame.cu (visibility, plan_blocks, edl) are held to their plain
 versions, bit for bit, on the frames of phases 4 (exact), 8 (pooled), 10
 (LAS), 13 (paged brick) and 15 (shard 0), edl also on the composites of
-phases 13 and 15, and timed there (the plans as the one batched call the
+phases 13 and 15 and, in phase 4, on 3840x2160 planes made from a seed
+(beyond the L2), and timed there (the plans as the one batched call the
 frame makes; beside each, the co-resident grid, the launches per frame, a
 check that a call is one kernel and no memset, and the launch floor: the
-empty kernel simlod_noop through the same ctypes path, timed in phase 4). Every kernel launch counter is zeroed
+empty kernel simlod_noop through the same ctypes path, timed in phase 4,
+with the host µs of the wrappers' launch paths and their parts:
+visibility, the plans, edl and splat_samples). Every kernel launch counter is zeroed
 just before each main path (phases 3, 6, 7, 10, 11, 12, 13, 15, 16 and the
 app and viewer runs of 17) and read just after: splat_samples and the three
 frame kernels must have run on every one, the tile kernel on the tile-route
@@ -840,6 +843,13 @@ def frame_kernel_entry(name: str, fk_rows: dict) -> dict:
         "ms_call_ms_profiler_ms_plain_ms_bound_ms_by_stream": {
             k: [r[1], r[4], r[5], r[2], r[3]]
             for k, r in fk_rows[name].items()}}
+    if name == "edl":
+        err, ms, plain_ms, bound, call_ms, prof_ms = fk_rows[name][EDL_4K]
+        out["at_3840x2160"] = {"ms": ms, "call_ms": call_ms,
+                               "profiler_ms": prof_ms, "plain_ms": plain_ms,
+                               "bound_ms": bound, "max_abs_err": err}
+        out["host_us_per_call"] = {k: v for k, v in HOST_US.items()
+                                   if "edl" in k}
     if name in FK_LAUNCH:
         out["launch_floor_ms"] = LAUNCH_FLOOR
         out["host_us_per_call"] = HOST_US
@@ -935,27 +945,61 @@ def device_text(queued, prof) -> str:
             f"by the profiler: {dev_text(prof)})")
 
 
-def edl_vs_plain(color, depth, u, what: str, card: str, rows: dict):
+def edl_vs_plain(color, depth, u, what: str, card: str, rows: dict,
+                 w: int = W, h: int = H):
     """The EDL kernel and its plain version on one frame's colour and depth
-    planes: bit-equal, then timed; adds (err, ms, plain ms, bound ms, call
-    ms) to rows["edl"][what]."""
+    planes (w x h): bit-equal, then timed; adds (err, ms, plain ms, bound
+    ms, call ms, profiler ms) to rows["edl"][what]."""
     import torch
     from simlod_tpu_torch.render import raster
     with uncounted():
-        got = raster.edl_cuda(color, depth, u, W, H)
-        want = raster.edl_reference(color, depth, u, W, H)
+        got = raster.edl_cuda(color, depth, u, w, h)
+        want = raster.edl_reference(color, depth, u, w, h)
         torch.cuda.synchronize()
         err = _bit_err(got, want)
         check(err == 0, f"edl kernel != plain version ({what}, max err {err})")
         call_ms, ms, prof_ms, plain_ms = _timed(
-            lambda: raster.edl_cuda(color, depth, u, W, H),
-            lambda: raster.edl_reference(color, depth, u, W, H), "edl")
+            lambda: raster.edl_cuda(color, depth, u, w, h),
+            lambda: raster.edl_reference(color, depth, u, w, h), "edl")
     # colour and depth read once, the shaded colour written once
-    bound = bound_ms(12 * W * H)
+    bound = bound_ms(12 * w * h)
     rows["edl"][what] = (err, ms, plain_ms, bound, call_ms, prof_ms)
-    say(f"edl, {what}: {W}x{H}: kernel {device_text(ms, prof_ms)}; "
+    say(f"edl, {what}: {w}x{h}: kernel {device_text(ms, prof_ms)}; "
         f"{call_ms:.4f} ms per call by CUDA events; plain {plain_ms:.4f} ms;"
         f" bound {bound:.4f} ms; bit-equal; card: {card}")
+
+
+EDL_4K = "3840x2160 synthetic"
+
+
+def edl_planes(w: int, h: int, dev, seed: int = 11):
+    """EDL's inputs at w x h made on the device from a seed: depths in
+    [0.5, 50) with 30% background (+inf) pixels and a background patch,
+    drawn edge rows and columns (the neighbours wrap), random colours; and
+    default Uniforms (EDL on, strength 0.4). Returns (colour, depth bits,
+    uniforms)."""
+    import numpy as np
+    import torch
+    from simlod_tpu_torch.config import Settings, Uniforms
+    g = torch.Generator(device=dev).manual_seed(seed)
+    depth = torch.empty(h, w, device=dev).uniform_(0.5, 50.0, generator=g)
+    depth[torch.rand(h, w, device=dev, generator=g) < 0.3] = float("inf")
+    depth[h // 4:h // 2, w // 4:w // 2] = float("inf")
+    depth[:, 0] = depth[:, -1] = 2.0
+    depth[0, :] = 0.75
+    color = torch.randint(-2**31, 2**31 - 1, (w * h,), dtype=torch.int32,
+                          device=dev, generator=g)
+    u = Uniforms.make(w, h, np.eye(4, dtype=np.float32), settings=Settings(),
+                      device=dev)
+    return color, depth.reshape(-1).view(torch.int32), u
+
+
+def edl_4k(dev, card: str, rows: dict):
+    """EDL at 3840x2160 on edl_planes: 99.5 MB that do not fit the 50 MB
+    L2, so there the HBM bound is the floor. edl_vs_plain as on the
+    frames, under rows["edl"][EDL_4K]."""
+    color, depth, u = edl_planes(3840, 2160, dev)
+    edl_vs_plain(color, depth, u, EDL_4K, card, rows, 3840, 2160)
 
 
 def plan_bytes(spec) -> int:
@@ -968,14 +1012,17 @@ def plan_bytes(spec) -> int:
 
 
 def host_breakdown(cfg, state, u, windows, card: str):
-    """Where the host time of the two cooperative kernels' calls goes, on
-    one exact frame's inputs: host µs per call (host clock around 200
-    back-to-back calls, no sync between them) of the whole wrapper and of
-    its parts (input checks, the packed words and the raw stream, the empty
-    kernel's cooperative launch through the same ctypes path), beside what
-    previous launch path spent instead (torch.cuda.current_stream, the
-    torch.cuda.device context). Then the outputs' allocation both ways,
-    timed in turns (ABBA, 8 rounds, medians): one arena a call
+    """Where the host time of the frame kernels' calls goes, on one exact
+    frame's inputs: host µs per call (host clock around 200 back-to-back
+    calls, no sync between them) of the whole wrapper and of its parts
+    (input checks, the packed words and the raw stream, the empty kernel's
+    cooperative launch through the same ctypes path; for edl_cuda its 3
+    input checks, its output's torch.empty, the raw stream and its ctypes
+    launch), beside what the previous launch path spent instead
+    (torch.cuda.current_stream, the torch.cuda.device context). Then, timed
+    in turns (ABBA, 8 rounds, medians): the edl_cuda and splat_samples
+    wrappers (200 and 50 calls a run) against the same inside that previous
+    path; and the outputs' allocation both ways, one arena a call
     (kernels.carve, what plan_blocks_many_cuda makes) against one
     torch.empty per output plus one scratch tensor (what
     compute_visibility_cuda makes), for visibility without and with a pool
@@ -985,7 +1032,8 @@ def host_breakdown(cfg, state, u, windows, card: str):
     from simlod_tpu_torch import kernels
     from simlod_tpu_torch.ops import ragged
     from simlod_tpu_torch.render import raster, visibility
-    from simlod_tpu_torch.render.render import _trim_directories
+    from simlod_tpu_torch.render.render import (_trim_directories,
+                                                frame_samples)
     st = _trim_directories(state, *windows[2:])
     dev = st.child_base.device
     n = st.child_base.shape[0]
@@ -1010,6 +1058,35 @@ def host_breakdown(cfg, state, u, windows, card: str):
         with torch.cuda.device(dev):
             pass
 
+    # the EDL wrapper's inputs at 1080p and its parts, as edl_cuda makes them
+    color = torch.zeros(W * H, dtype=i32, device=dev)
+    depth = torch.ones(W * H, device=dev).view(i32)
+    out = torch.empty_like(color)
+    lib = kernels.load()
+    edl_args = (color.data_ptr(), depth.data_ptr(), W, H,
+                u.edl_strength.data_ptr(), out.data_ptr(), dev.index,
+                kernels.stream(dev))
+    _, sets, _ = frame_samples(cfg, state, u, *windows)
+
+    def previous(fn):
+        """fn inside what the edl_cuda and splat_samples wrappers did
+        before: the torch.cuda.device context and a Stream object for the
+        raw stream."""
+        def call():
+            with torch.cuda.device(dev):
+                torch.cuda.current_stream(dev).cuda_stream
+                fn()
+        return call
+
+    def in_turns(fa, fb, reps: int = 200):
+        """Host µs a call of fa and of fb, timed in turns (ABBA, 8 rounds):
+        the medians."""
+        got = ([], [])
+        for r in range(8):
+            for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+                got[k].append(us((fa, fb)[k], reps))
+        return float(np.median(got[0])), float(np.median(got[1]))
+
     def empties(chunks, outputs):
         """One torch.empty per output chunk, one for all the scratch."""
         def make():
@@ -1023,13 +1100,8 @@ def host_breakdown(cfg, state, u, windows, card: str):
     def pair(chunks, views):
         """The arena of `chunks` (its first `views` as tensors) against a
         torch.empty for each of those and one for the rest (scratch)."""
-        arena = lambda: kernels.carve(dev, chunks, views)
-        each = empties(chunks, views)
-        got = ([], [])
-        for r in range(8):
-            for k in ((0, 1) if r % 2 == 0 else (1, 0)):
-                got[k].append(us((arena, each)[k]))
-        return float(np.median(got[0])), float(np.median(got[1]))
+        return in_turns(lambda: kernels.carve(dev, chunks, views),
+                        empties(chunks, views))
 
     with uncounted():
         parts = {
@@ -1051,7 +1123,22 @@ def host_breakdown(cfg, state, u, windows, card: str):
             "previous path: torch.cuda.current_stream": us(
                 lambda: torch.cuda.current_stream(dev).cuda_stream),
             "previous path: torch.cuda.device context": us(ctx),
+            "edl_cuda call": us(lambda: raster.edl_cuda(color, depth, u, W,
+                                                        H)),
+            "edl: its 3 input checks": us(lambda: [
+                kernels.data_ptr(color, "", "", i32, dev, (W * H,)),
+                kernels.data_ptr(depth, "", "", i32, dev, (W * H,)),
+                kernels.data_ptr(u.edl_strength, "", "", torch.float32, dev,
+                                 ())]),
+            "edl: its output's torch.empty": us(
+                lambda: torch.empty(W * H, dtype=i32, device=dev)),
+            "edl: the raw stream": us(lambda: kernels.stream(dev)),
+            "edl: the ctypes launch": us(lambda: lib.simlod_edl(*edl_args)),
         }
+        edl = lambda: raster.edl_cuda(color, depth, u, W, H)
+        splat = lambda: raster.splat_samples(cfg, u, W, H, sets)
+        paths = {"edl_cuda": in_turns(edl, previous(edl)),
+                 "splat_samples": in_turns(splat, previous(splat), 50)}
         # visibility's outputs as an arena would hold them (its wrapper
         # makes a torch.empty each): emitted, visible, is_large, (exact_p,
         # exact_v,) dx, dy, counts, (take_p, take_v,) then the partial rows
@@ -1072,8 +1159,15 @@ def host_breakdown(cfg, state, u, windows, card: str):
         "one torch.empty per output + one scratch: " + ", ".join(
             f"{k} {a:.1f} vs {e:.1f} ({e / a:.2f}x)"
             for k, (a, e) in alloc.items()) + f"; card: {card}")
+    say("host µs per call, timed in turns, the wrapper vs the same inside "
+        "the previous launch path's torch.cuda.device context and Stream "
+        "object: " + ", ".join(f"{k} {a:.1f} vs {b:.1f} ({b - a:+.1f})"
+                               for k, (a, b) in paths.items())
+        + f"; card: {card}")
     parts.update({f"allocation, {k}: arena, torch.empty each": list(v)
                   for k, v in alloc.items()})
+    parts.update({f"launch path, {k}: wrapper, inside the previous path":
+                  list(v) for k, v in paths.items()})
     return parts
 
 
@@ -1916,6 +2010,7 @@ def main(argv=None) -> int:
         fk_rows = {name: {} for name in FRAME_LAUNCHES}
         frame_kernels_vs_plain(eng.cfg, eng.state, eng.uniforms(W, H),
                                "exact frame", card, fk_rows, eng.last_windows)
+        edl_4k(dev, card, fk_rows)
         for hqs in (True, False):
             eng.settings.use_high_quality_shading = hqs
             u = eng.uniforms(W, H)
@@ -2344,6 +2439,8 @@ def main(argv=None) -> int:
         "ms": xx[1], "plain_ms": xx[2], "bound_ms": xx[3], "bound_by": "bytes",
         "library_ms": None, "stage_ms": xx[5], "previous_stage_ms": xx[4],
         "call_ms": xx[7], "profiler_ms": xx[8],
+        "host_us_per_call": {k: v for k, v in HOST_US.items()
+                             if "splat_samples" in k},
         "ms_plain_ms_bound_ms_by_stream": by_stream(xrows),
     }, {
         "name": "splat_resolve", "route": "cuda",

@@ -4,8 +4,8 @@
                    JAX package, so one config means the same octree in both)
   - Settings     : interactive render/LOD knobs (mirrors the reference `settings`)
   - Uniforms     : per-frame values as tensors on the device, with the
-                   switches (RenderFlags) and the frame kernels' values
-                   (UniformsHost) also as host values
+                   switches (RenderFlags) and the visibility kernel's
+                   values (UniformsHost) also as host values
   - Stats        : engine counters (mirrors HostDeviceInterface.h:46-71)
 """
 from __future__ import annotations
@@ -182,16 +182,10 @@ class RenderFlags:
 
 @dataclasses.dataclass(frozen=True)
 class UniformsHost:
-    """Host copies of the per-frame values the frame kernels take by value
-    (render/visibility.py, render/raster.edl): the same float32 values as the
-    device tensors, so a kernel launch reads nothing back."""
+    """Host copies of the per-frame values the visibility kernel takes by
+    value (render/visibility.py): the same float32 values as the device
+    tensors, so a kernel launch reads nothing back."""
 
-    transform_update_bound: tuple   # 16 floats, row-major [4, 4]
-    width: float
-    height: float
-    min_node_size: float
-    point_budget: float
-    edl_strength: float
     planes: tuple                   # 24 floats: the frustum planes [6, 4]
     # the visibility kernel's 44 float32 arguments (transform_update_bound,
     # planes, width, height, min_node_size, point_budget), packed once
@@ -202,7 +196,7 @@ class UniformsHost:
 class Uniforms:
     """Per-frame values on the device (reference: HostDeviceInterface.h:10-44),
     the switches among them again as host values (`flags`), and the values
-    the frame kernels take by value (`host`).
+    the visibility kernel takes by value (`host`).
 
     Matrices are row-major [4,4] float32 acting on column vectors, exactly like the
     reference's `uniforms.transform * float4`."""
@@ -272,11 +266,6 @@ class Uniforms:
                 color_white=bool(s.color_white),
                 enable_edl=bool(s.enable_edl)),
             host=UniformsHost(
-                transform_update_bound=tuple(floats[22:38].tolist()),
-                width=float(floats[0]), height=float(floats[1]),
-                min_node_size=float(floats[3]),
-                point_budget=float(floats[5]),
-                edl_strength=float(floats[4]),
                 planes=tuple(planes.tolist()),
                 vis_floats=vis_floats.astype(np.float32).tobytes()),
         )

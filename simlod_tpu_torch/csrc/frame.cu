@@ -27,9 +27,10 @@
 //               every set, one block per set scanning its tile sums, and a fill
 //               in which each warp writes its 32 segments' rows.
 //   edl         (render/raster.edl; JAX raster.edl,
-//               simlod_tpu/render/raster.py:259): one thread per pixel reads
-//               its depth and its 4 neighbours' (wrapping at the image edges,
-//               as torch.roll), and shades its colour.
+//               simlod_tpu/render/raster.py:259): a 2-D grid of 128 x 8
+//               pixel tiles; each block puts log2 of its tile's depths and a
+//               wrapping one-pixel halo (as torch.roll) in shared memory, then
+//               each thread shades its 4 pixels' colours.
 //
 // What bounds them: the launch. Their bytes are few (a node's 32 B, a
 // segment's 8-13 B, a plan row's 17 B, a pixel's 12 B): a few KB to a few MB,
@@ -43,7 +44,8 @@
 // inside one; every launch reads its inputs once and writes its outputs once;
 // nothing in between goes to device memory except the plan's per-segment scan
 // (4 B a segment), its tile sums and visibility's partial rows; no launch needs
-// a host read, and the frame's scalars come by value.
+// a host read; visibility's scalars come by value, EDL's strength is read
+// from the device.
 //
 // Bit-equality with the plain versions (torch on the card, one rounding per
 // op): every float op is an explicit __f*_rn intrinsic in torch's op order
@@ -61,6 +63,8 @@
 
 #include <algorithm>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -76,30 +80,8 @@ inline int blocks_for(long long n) {
   return static_cast<int>(b < 1 ? 1 : (b > MAX_BLOCKS ? MAX_BLOCKS : b));
 }
 
-// Makes `device` current for a launch (torch's stream of a tensor belongs to
-// the tensor's device) and restores the caller's device afterwards.
-class DeviceGuard {
- public:
-  explicit DeviceGuard(int device) : device_(device) {
-    err_ = cudaGetDevice(&prev_);
-    if (err_ == cudaSuccess && prev_ != device_) err_ = cudaSetDevice(device_);
-  }
-  ~DeviceGuard() {
-    if (err_ == cudaSuccess && prev_ != device_) cudaSetDevice(prev_);
-  }
-  int error() const { return static_cast<int>(err_); }
-
- private:
-  int device_, prev_ = -1;
-  cudaError_t err_;
-};
-
-// The first error of a launch call: the launch's own, or cudaGetLastError()
-// (which it also clears, so that no later call reports it again).
-inline int launch_error(cudaError_t launched) {
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(launched != cudaSuccess ? launched : last);
-}
+using simlod::DeviceGuard;
+using simlod::launch_error;
 
 // torch.minimum / maximum on float tensors: a NaN operand is the result
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -499,37 +481,152 @@ __global__ void __launch_bounds__(SCAN) plan_many(const __grid_constant__ PlanMa
 
 // raster.edl: response = sum over the 4 neighbours (wrapping) of
 // max(log2(d) - log2(d_n), 0), NaN -> 0; shade = exp(-(response / 50) * 300 *
-// strength); each colour byte times shade, truncated; alpha 0xFF
-__global__ void __launch_bounds__(THREADS) edl(const int* __restrict__ color,
-                                               const int* __restrict__ depth, int width,
-                                               int height, float strength,
-                                               int* __restrict__ out) {
-  const long long npx = static_cast<long long>(width) * height;
-  const int dxs[4] = {0, 1, 0, -1}, dys[4] = {1, 0, -1, 0};
-  for (long long p = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; p < npx;
-       p += static_cast<long long>(gridDim.x) * THREADS) {
-    const int x = static_cast<int>(p % width), y = static_cast<int>(p / width);
-    const float l = log2f(__int_as_float(depth[p]));
-    float resp = 0.0f;
+// strength); each colour byte times shade, truncated; alpha 0xFF.
+//
+// What it replaces: the JAX frame's raster.edl (simlod_tpu/render/raster.py
+// :259), which XLA fuses into the jitted frame, and this port's previous EDL
+// kernel, a 1-D grid-stride loop of one thread per pixel that split each
+// pixel index with a 64-bit divide and modulo and computed five log2f per
+// pixel (its own and each of its 4 neighbours' again).
+//
+// What bounds it: memory. It reads colour and depth and writes colour, 12 B a
+// pixel: 24.9 MB, 0.0074 ms at 3.35 TB/s at 1920x1080, and 99.5 MB, 0.0297 ms
+// at 3840x2160. The 1080p planes fit the 50 MB L2 and are likely resident
+// just after the splat that wrote them, so there the kernel may read under
+// its HBM bound; at 4K they do not fit, and the HBM bound is the floor.
+//
+// What the design does about it: a 2-D grid of 128 x 8-pixel tiles, blocks of
+// 32 x 8 threads, each thread 4 neighbouring pixels of a row; x and y from
+// the block and thread indices in 32-bit ints (no 64-bit divide: the wrapper
+// keeps width * height < 2^31). A thread first loads its 4 depths and 4
+// colours, as one 16 B load each when the row width is a multiple of 4 and
+// the pointers are 16 B aligned (scalar loads otherwise): 32 B in flight a
+// thread before anything waits, which is what keeps HBM busy (on an H100
+// 80GB HBM3, one pixel and one 4 B depth load a thread reached ~42% of the
+// bound at 4K, this design ~68%). Each block puts log2f of its
+// tile's depths and a one-pixel halo, (8 + 2) x (128 + 2) floats, in shared
+// memory: the threads' own cells, then the 276 halo cells shared out over
+// the block. The halo wraps as torch.roll does, column (x +- 1) mod W and
+// row (y +- 1) mod H, for every edge and for images smaller than a tile.
+// That is 1,300 log2f for 1,024 pixels (1.27 a pixel, not 5). After one
+// barrier each thread reads its cells and the rows above and below as 16 B
+// shared loads and shades its 4 pixels, stored as one 16 B store (or 4
+// scalar ones). The strength is read from the device (Uniforms.edl_strength),
+// so the launch takes no per-frame value. The arithmetic follows torch's op
+// order (bit-equal to edl_reference on the card).
+constexpr int EDL_PX = 4;                                   // pixels a thread
+constexpr int EDL_THX = 32, EDL_THY = 8;                    // threads a block
+constexpr int EDL_TX = EDL_THX * EDL_PX, EDL_TY = EDL_THY;  // pixels a tile
+// the tile's column c (pixel x0 + c - 1, 0 <= c <= EDL_TX + 1) lies at
+// EDL_PAD + c, so that each thread's 4 cells start on a 16 B boundary
+constexpr int EDL_PAD = 3;
+constexpr int EDL_SX = 136;  // >= EDL_PAD + EDL_TX + 2, a multiple of 4
+constexpr int EDL_HALO = 2 * (EDL_TX + 2) + 2 * EDL_TY;
+constexpr int EDL_MAX_GRID_Y = 65535;
+
+// v in [-1, n + EDL_TX] mapped into the image as torch.roll wraps: v mod n
+// for v in [-1, 2n); beyond that only cells of a tile larger than the image
+// that no pixel reads, clamped to stay in bounds
+__device__ __forceinline__ int edl_wrap(int v, int n) {
+  v = v < 0 ? v + n : (v >= n ? v - n : v);
+  return min(v, n - 1);
+}
+
+// a colour's bytes times shade, truncated; alpha 0xFF
+__device__ __forceinline__ int edl_shade(int color, float shade) {
+  const uint32_t c = static_cast<uint32_t>(color);
+  long long v = 0xFF000000ll;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      int xn = x + dxs[k], yn = y + dys[k];
-      xn = xn < 0 ? xn + width : (xn >= width ? xn - width : xn);
-      yn = yn < 0 ? yn + height : (yn >= height ? yn - height : yn);
-      const float ln = log2f(__int_as_float(depth[xn + static_cast<long long>(width) * yn]));
-      const float diff = __fsub_rn(l, ln);
-      resp = __fadd_rn(resp, diff != diff ? 0.0f : fmaxf(diff, 0.0f));
-    }
-    resp = __fmul_rn(resp, 1.0f / 50.0f);
-    const float shade = expf(__fmul_rn(__fmul_rn(-resp, 300.0f), strength));
-    const uint32_t c = static_cast<uint32_t>(color[p]);
-    long long v = 0xFF000000ll;
+  for (int k = 0; k < 3; ++k) {
+    const float ch = __fmul_rn(__int2float_rn(static_cast<int>((c >> (8 * k)) & 0xFFu)), shade);
+    v |= static_cast<long long>(ch) << (8 * k);
+  }
+  return static_cast<int>(static_cast<uint32_t>(v));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(EDL_THX* EDL_THY)
+    edl(const int* __restrict__ color, const int* __restrict__ depth, int width, int height,
+        int tiles_y, const float* __restrict__ strength, int* __restrict__ out) {
+  __shared__ __align__(16) float logd[EDL_TY + 2][EDL_SX];
+  const int t = threadIdx.y * EDL_THX + threadIdx.x;
+  const int x0 = blockIdx.x * EDL_TX;
+  const int xs = x0 + EDL_PX * threadIdx.x;           // this thread's first pixel
+  const int cx = EDL_PAD + 1 + EDL_PX * threadIdx.x;  // and its cell
+  const int cy = threadIdx.y + 1;
+  const float s = *strength;
+  // more than 65,535 rows of tiles: each block takes every gridDim.y-th
+  for (int ty = blockIdx.y; ty < tiles_y; ty += gridDim.y) {
+    const int y0 = ty * EDL_TY, y = y0 + threadIdx.y;
+    const bool whole = y < height && xs + EDL_PX <= width;
+    int d[EDL_PX], c[EDL_PX];
+    if (VEC && whole) {
+      const int p = y * width + xs;
+      const int4 dv = *reinterpret_cast<const int4*>(depth + p);
+      const int4 cv = *reinterpret_cast<const int4*>(color + p);
+      d[0] = dv.x, d[1] = dv.y, d[2] = dv.z, d[3] = dv.w;
+      c[0] = cv.x, c[1] = cv.y, c[2] = cv.z, c[3] = cv.w;
+    } else {
+      // cells outside the image hold the wrapped depth (a pixel's neighbour
+      // may read them); only pixels inside it have a colour
+      const int gy = edl_wrap(y, height);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float ch = __fmul_rn(__int2float_rn(static_cast<int>((c >> (8 * k)) & 0xFFu)), shade);
-      v |= static_cast<long long>(ch) << (8 * k);
+      for (int k = 0; k < EDL_PX; ++k) {
+        d[k] = depth[gy * width + edl_wrap(xs + k, width)];
+        c[k] = y < height && xs + k < width ? color[y * width + xs + k] : 0;
+      }
     }
-    out[p] = static_cast<int>(static_cast<uint32_t>(v));
+    *reinterpret_cast<float4*>(&logd[cy][cx]) =
+        make_float4(log2f(__int_as_float(d[0])), log2f(__int_as_float(d[1])),
+                    log2f(__int_as_float(d[2])), log2f(__int_as_float(d[3])));
+    // the halo: rows 0 and EDL_TY + 1 whole, then columns 0 and EDL_TX + 1
+    for (int i = t; i < EDL_HALO; i += EDL_THX * EDL_THY) {
+      int r, col;
+      if (i < 2 * (EDL_TX + 2)) {
+        const bool last = i >= EDL_TX + 2;
+        r = last ? EDL_TY + 1 : 0;
+        col = last ? i - (EDL_TX + 2) : i;
+      } else {
+        const int j = i - 2 * (EDL_TX + 2);
+        r = 1 + (j >> 1);
+        col = (j & 1) ? EDL_TX + 1 : 0;
+      }
+      const int gx = edl_wrap(x0 + col - 1, width), gy = edl_wrap(y0 + r - 1, height);
+      logd[r][EDL_PAD + col] = log2f(__int_as_float(depth[gy * width + gx]));
+    }
+    __syncthreads();
+    if (y < height) {
+      const float4 mid = *reinterpret_cast<const float4*>(&logd[cy][cx]);
+      const float4 next = *reinterpret_cast<const float4*>(&logd[cy + 1][cx]);  // y + 1
+      const float4 prev = *reinterpret_cast<const float4*>(&logd[cy - 1][cx]);  // y - 1
+      const float row[EDL_PX + 2] = {logd[cy][cx - 1], mid.x, mid.y, mid.z, mid.w,
+                                     logd[cy][cx + EDL_PX]};
+      const float below[EDL_PX] = {next.x, next.y, next.z, next.w};
+      const float above[EDL_PX] = {prev.x, prev.y, prev.z, prev.w};
+      int o[EDL_PX];
+#pragma unroll
+      for (int k = 0; k < EDL_PX; ++k) {
+        const float l = row[k + 1];
+        // raster.edl's order: (dx, dy) = (0, 1), (1, 0), (0, -1), (-1, 0)
+        const float nb[4] = {below[k], row[k + 2], above[k], row[k]};
+        float resp = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float diff = __fsub_rn(l, nb[j]);
+          resp = __fadd_rn(resp, diff != diff ? 0.0f : fmaxf(diff, 0.0f));
+        }
+        resp = __fmul_rn(resp, 1.0f / 50.0f);
+        o[k] = edl_shade(c[k], expf(__fmul_rn(__fmul_rn(-resp, 300.0f), s)));
+      }
+      if (VEC && whole) {
+        *reinterpret_cast<int4*>(out + y * width + xs) = make_int4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < EDL_PX; ++k)
+          if (xs + k < width) out[y * width + xs + k] = o[k];
+      }
+    }
+    __syncthreads();  // the tile is read before the next one overwrites it
   }
 }
 
@@ -736,14 +833,30 @@ extern "C" int simlod_noop(int cooperative, int device, void* stream) {
   return launch_error(cudaSuccess);
 }
 
-// edl: color, depth bits and out are [width * height] int32 on the device;
-// one launch.
+// edl: color, depth bits and out are [width * height] int32 on the device
+// (width * height < 2^31), strength a device float. One launch of
+// ceil(W / 128) x ceil(H / 8) blocks of 32 x 8 threads (at most 65,535 rows
+// of blocks, each then looping over its rows of tiles); 16 B loads and
+// stores when W is a multiple of 4 and every plane is 16 B aligned.
 extern "C" int simlod_edl(const void* color, const void* depth, int width, int height,
-                          float strength, void* out, void* stream) {
-  if (width < 1 || height < 1) return static_cast<int>(cudaErrorInvalidValue);
+                          const void* strength, void* out, int device, void* stream) {
+  if (width < 1 || height < 1 || static_cast<long long>(width) * height >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
+  const int tiles_x = static_cast<int>((static_cast<long long>(width) + EDL_TX - 1) / EDL_TX);
+  const int tiles_y = static_cast<int>((static_cast<long long>(height) + EDL_TY - 1) / EDL_TY);
+  const dim3 grid(tiles_x, std::min(tiles_y, EDL_MAX_GRID_Y)), block(EDL_THX, EDL_THY);
+  const bool vec = width % EDL_PX == 0 && (reinterpret_cast<uintptr_t>(color) |
+                                           reinterpret_cast<uintptr_t>(depth) |
+                                           reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  edl<<<blocks_for(static_cast<long long>(width) * height), THREADS, 0, st>>>(
-      static_cast<const int*>(color), static_cast<const int*>(depth), width, height, strength,
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  auto c = static_cast<const int*>(color), d = static_cast<const int*>(depth);
+  auto f = static_cast<const float*>(strength);
+  auto o = static_cast<int*>(out);
+  if (vec)
+    edl<true><<<grid, block, 0, st>>>(c, d, width, height, tiles_y, f, o);
+  else
+    edl<false><<<grid, block, 0, st>>>(c, d, width, height, tiles_y, f, o);
+  return launch_error(cudaSuccess);
 }

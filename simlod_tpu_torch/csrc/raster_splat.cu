@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 using u64 = unsigned long long;
@@ -483,7 +485,7 @@ extern "C" int simlod_splat_resolve(const void* pix, const void* dbits, const vo
 // C entry point of splat_samples (bound with ctypes). `sets` is a host array
 // of nsets SetDesc (18 int64 words each), copied into the launches'
 // parameters; every other pointer is device memory. Four launches on
-// `stream` (clear, min walk, HQS walk, finish); allocates nothing (fb [npx]
+// `stream`, with `device` current (clear, min walk, HQS walk, finish); allocates nothing (fb [npx]
 // u64 and acc [2 npx] u64 are scratch from the caller), does not synchronise,
 // and reads every uniform (transform, width and height as floats, point size,
 // shading mode, show_points) on the device. Returns the first nonzero
@@ -493,9 +495,11 @@ extern "C" int simlod_splat_samples(const void* sets, int nsets, const void* tra
                                     const void* point_size, const void* hqs, int width,
                                     int height, int max_point_size, int color_mode,
                                     void* fb, void* acc, void* color_out, void* depth_out,
-                                    void* stream) {
+                                    int device, void* stream) {
   if (nsets < 1 || nsets > MAX_SETS || width < 1 || height < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const simlod::DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   Frame f{};
   const SetDesc* in = static_cast<const SetDesc*>(sets);
   long long total = 0;

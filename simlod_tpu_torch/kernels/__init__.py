@@ -1,4 +1,5 @@
-"""Build and bind the package's CUDA kernels (simlod_tpu_torch/csrc/*.cu).
+"""Build and bind the package's CUDA kernels (simlod_tpu_torch/csrc/*.cu, with
+the header they share, csrc/launch.cuh).
 
 The sources are compiled with nvcc for Hopper (sm_90a) into one shared library
 with a plain C interface, loaded with ctypes. The build happens at first use, never
@@ -48,7 +49,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    srcs = sorted(SRC_DIR.glob("*.cu"))
+    srcs = sorted([*SRC_DIR.glob("*.cu"), *SRC_DIR.glob("*.cuh")])
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         h.update(s.name.encode())
@@ -263,7 +264,7 @@ def load() -> ctypes.CDLL:
             lib.simlod_splat_resolve.argtypes = [p, p, p, i, p, i, p, p, p, p, p]
             lib.simlod_splat_resolve.restype = i
             lib.simlod_splat_samples.argtypes = [p, i, p, p, p, p, p, i, i, i,
-                                                 i, p, p, p, p, p]
+                                                 i, p, p, p, p, i, p]
             lib.simlod_splat_samples.restype = i
             lib.simlod_coop_grid.argtypes = [i, i]
             lib.simlod_coop_grid.restype = i
@@ -275,7 +276,7 @@ def load() -> ctypes.CDLL:
             lib.simlod_plan_blocks_many.restype = i
             lib.simlod_noop.argtypes = [i, i, p]
             lib.simlod_noop.restype = i
-            lib.simlod_edl.argtypes = [p, p, i, i, ctypes.c_float, p, p]
+            lib.simlod_edl.argtypes = [p, p, i, i, p, p, i, p]
             lib.simlod_edl.restype = i
             _lib = lib
         return _lib

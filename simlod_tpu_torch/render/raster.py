@@ -434,14 +434,10 @@ def splat_samples(cfg: EngineConfig, uniforms: Uniforms, width: int,
     out = torch.empty(npx, dtype=i32, device=dev)
     depth = torch.empty_like(out)
     table = (ctypes.c_int64 * len(desc))(*desc)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.simlod_splat_samples(
-            table, len(sources), *uni, width, height, cfg.max_point_size, mode,
-            fb.data_ptr(), acc.data_ptr(), out.data_ptr(), depth.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"splat_samples: kernel launch failed (cudaError {rc})")
+    kernels.check_launch(lib.simlod_splat_samples(
+        table, len(sources), *uni, width, height, cfg.max_point_size, mode,
+        fb.data_ptr(), acc.data_ptr(), out.data_ptr(), depth.data_ptr(),
+        dev.index, kernels.stream(dev)), "splat_samples")
     splat_samples.launches += 1
     return out, depth
 
@@ -511,24 +507,24 @@ def edl_cuda(color: torch.Tensor, depth_bits: torch.Tensor,
     It replaces the plain version's ~35 launches (log2, four rolls and
     clamped differences, the shade, three channels), which XLA fuses in the
     JAX package's jitted frame (raster.edl, simlod_tpu/render/raster.py
-    :259): one thread per pixel reads its depth and its 4 neighbours'
-    (wrapping at the edges, as torch.roll does), and its colour. Bound by
-    memory: 12 B a pixel. The strength comes by value (Uniforms.host). Each
-    call adds one to `edl_cuda.launches`."""
+    :259): one launch of 128 x 8-pixel tiles, 4 pixels a thread, each block
+    computing log2 of its tile's depths and a wrapping one-pixel halo (as
+    torch.roll) once, in shared memory. Bound by memory: 12 B a pixel. The
+    strength is read on the device (`uniforms.edl_strength`), so the launch
+    takes no per-frame value. Each call adds one to `edl_cuda.launches`."""
     npx = width * height
     dev = color.device
     if not 0 < npx < (1 << 31):
         raise ValueError("edl_cuda: width * height must be an int32 > 0")
-    ptrs = [kernels.data_ptr(t, "edl_cuda", what, torch.int32, dev, (npx,))
-            for what, t in (("color", color), ("depth_bits", depth_bits))]
-    out = torch.empty(npx, dtype=torch.int32, device=dev)
-    lib = kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.simlod_edl(*ptrs, width, height, uniforms.host.edl_strength,
-                            out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"edl_cuda: kernel launch failed (cudaError {rc})")
+    where, i32 = "edl_cuda", torch.int32
+    c = kernels.data_ptr(color, where, "color", i32, dev, (npx,))
+    d = kernels.data_ptr(depth_bits, where, "depth_bits", i32, dev, (npx,))
+    s = kernels.data_ptr(uniforms.edl_strength, where, "edl_strength",
+                         torch.float32, dev, ())
+    out = torch.empty(npx, dtype=i32, device=dev)
+    kernels.check_launch(kernels.load().simlod_edl(
+        c, d, width, height, s, out.data_ptr(), dev.index,
+        kernels.stream(dev)), where)
     edl_cuda.launches += 1
     return out
 

@@ -14,9 +14,11 @@ package's jitted frame; each has a plain PyTorch version that the CPU runs:
     segments and a truncating window: bit-equal on the rows the plan draws;
     and against the plain version on pre-masked inputs: bit-equal on every
     field, junk rows included;
-  - edl_reference (render/raster.py) against JAX raster.edl: within 1 per
-    channel (XLA and torch round log2 / exp differently), and against the
-    formula it had before it became a kernel's plain version: bit-equal;
+  - edl_reference (render/raster.py) against JAX raster.edl at sizes from
+    1 x 1 up (the neighbours wrap, the card kernel's tiles are partial):
+    within 1 per channel (XLA and torch round log2 / exp differently), and
+    against the formula it had before it became a kernel's plain version:
+    bit-equal;
   - frustum.frustum_planes_host (the planes the visibility kernel takes by
     value) against frustum.frustum_planes and JAX's: bit-equal; and the
     planes and packed arguments Uniforms.make computes once per frame;
@@ -353,39 +355,52 @@ def _old_edl(color, depth_bits, uniforms, width, height):
     return tr.u32_bits(ch(0) | (ch(1) << 8) | (ch(2) << 16) | 0xFF000000)
 
 
-def _edl_inputs(seed):
+def _edl_inputs(seed, w=W, h=H):
     """Colours and depth bits with background (+inf) patches, drawn pixels
-    on the image edges (the neighbours wrap) and depth steps."""
+    on the image edges (the neighbours wrap) and depth steps, cut to w x h."""
     rng = np.random.default_rng(seed)
     depth = rng.uniform(0.5, 50.0, (H, W)).astype(np.float32)
     depth[rng.random((H, W)) < 0.3] = np.inf
     depth[10:30, 20:60] = np.inf
+    color = rng.integers(0, 2**32, (H, W), dtype=np.uint64).astype(np.uint32)
+    depth, color = depth[:h, :w].copy(), color[:h, :w].copy()
     depth[:, 0] = depth[:, -1] = 2.0
     depth[0, :] = 0.75
-    color = rng.integers(0, 2**32, (H, W), dtype=np.uint64).astype(np.uint32)
     return color.reshape(-1).view(np.int32), depth.reshape(-1).view(np.int32)
 
 
+# the sizes wrap onto the pixel itself (1 x 1), wrap within one tile of the
+# card kernel (3 x 2), leave partial 128 x 8 tiles and a partial group of a
+# thread's 4 pixels (33 x 9), and the test size
+@pytest.mark.parametrize("size", [(1, 1), (3, 2), (33, 9), (W, H)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("strength", [0.4, 1.5])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_edl_reference_matches_jax_and_the_old_formula(seed, strength):
-    color, depth = _edl_inputs(seed)
+def test_edl_reference_matches_jax_and_the_old_formula(seed, strength, size):
+    w, h = size
+    color, depth = _edl_inputs(seed, w, h)
     ju, tu = _uniforms(np.eye(4, dtype=np.float32), edl_strength=strength)
     got = tr.edl_reference(torch.from_numpy(color), torch.from_numpy(depth),
-                           tu, W, H)
+                           tu, w, h)
     assert torch.equal(got, _old_edl(torch.from_numpy(color),
-                                     torch.from_numpy(depth), tu, W, H))
+                                     torch.from_numpy(depth), tu, w, h))
     assert torch.equal(got, tr.edl(torch.from_numpy(color),
-                                   torch.from_numpy(depth), tu, W, H))
+                                   torch.from_numpy(depth), tu, w, h))
     want = np.asarray(jr.edl(jnp.asarray(color.view(np.uint32)),
-                             jnp.asarray(depth), ju, W, H)).view(np.uint32)
+                             jnp.asarray(depth), ju, w, h)).view(np.uint32)
     g = got.numpy().view(np.uint32)
     for k in range(4):
         d = np.abs(((want >> 8 * k) & 0xFF).astype(int)
                    - ((g >> 8 * k) & 0xFF).astype(int))
         assert d.max() <= 1, k
     shaded = (g & 0xFF) < (color.view(np.uint32) & 0xFF)
-    assert shaded.mean() > 0.05
+    if w * h == 1:
+        # every neighbour of the one pixel is the pixel itself: no shade
+        assert np.array_equal(g, color.view(np.uint32) | 0xFF000000)
+    elif (w, h) == (W, H):
+        assert shaded.mean() > 0.05
+    else:
+        assert shaded.any()
 
 
 def _wrapper_calls(ts, tu, tpool):

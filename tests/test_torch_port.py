@@ -569,6 +569,83 @@ def test_edl_kernel_matches_plain_version(card_engine, strength):
     assert raster.edl(color, depth, off, W, H) is color
 
 
+def _edl_case(w, h, background, device):
+    """Colours and depth bits at w x h: every pixel background (+inf), or
+    background patches, drawn edge rows and columns (the neighbours wrap)
+    and depth steps."""
+    rng = np.random.default_rng(w * 7919 + h)
+    depth = np.full((h, w), np.inf, np.float32)
+    if not background:
+        depth = rng.uniform(0.5, 50.0, (h, w)).astype(np.float32)
+        depth[rng.random((h, w)) < 0.3] = np.inf
+        depth[h // 4:h // 2, w // 4:w // 2] = np.inf
+        depth[:, 0] = depth[:, -1] = 2.0
+        depth[0, :] = 0.75
+        depth[-1, :] = 4.0
+    color = rng.integers(-2**31, 2**31 - 1, w * h).astype(np.int32)
+    f = lambda a: torch.from_numpy(a.reshape(-1)).to(device)
+    return f(color), f(depth.view(np.int32))
+
+
+def _offset(t):
+    """t's values in a tensor that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t)
+    return buf[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strength", [0.4, 1.5])
+@pytest.mark.parametrize("size", [(1, 1), (1, 9), (4, 3), (31, 7), (33, 9),
+                                  (132, 9), (1920, 1080), (1921, 1081),
+                                  (3840, 2160)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_edl_kernel_matches_plain_version_at_every_size(size, strength):
+    """The 128 x 8-tile kernel: images smaller than a tile (the halo wraps
+    onto the tile itself), partial tiles at the right and bottom edges and a
+    thread's 4 pixels cut by the right edge (widths not a multiple of 4: the
+    scalar path), 16-byte loads and stores (widths a multiple of 4) and the
+    same widths from planes that are not 16-byte aligned (the scalar path
+    again), 1080p, 1080p plus one and 4K; bit-equal, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    w, h = size
+    u = Uniforms.make(w, h, np.eye(4, dtype=np.float32),
+                      settings=Settings(edl_strength=strength), device="cuda")
+    for case in ("background", "drawn", "drawn, not aligned"):
+        c, dep = _edl_case(w, h, case == "background", "cuda")
+        if case == "drawn, not aligned":
+            c, dep = _offset(c), _offset(dep)
+        before = raster.edl_cuda.launches
+        got = raster.edl_cuda(c, dep, u, w, h)
+        want = raster.edl_reference(c, dep, u, w, h)
+        torch.cuda.synchronize()
+        assert raster.edl_cuda.launches == before + 1
+        assert torch.equal(got, want), (case, int((got != want).sum()))
+
+
+@pytest.mark.cuda
+def test_edl_kernel_reads_its_strength_on_the_device():
+    """Changing uniforms.edl_strength on the device changes the kernel's
+    result; the host copies of the uniforms stay as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    w, h = 160, 120
+    u = Uniforms.make(w, h, np.eye(4, dtype=np.float32),
+                      settings=Settings(edl_strength=0.4), device="cuda")
+    host = u.host
+    c, dep = _edl_case(w, h, False, "cuda")
+    weak = raster.edl_cuda(c, dep, u, w, h)
+    u.edl_strength.fill_(1.5)
+    strong = raster.edl_cuda(c, dep, u, w, h)
+    torch.cuda.synchronize()
+    assert u.host is host and u.host == host
+    assert not torch.equal(weak, strong)
+    assert torch.equal(strong, raster.edl_reference(c, dep, u, w, h))
+    u.edl_strength.fill_(0.4)
+    assert torch.equal(raster.edl_cuda(c, dep, u, w, h), weak)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("budget", [0.0, 1.0])
 def test_card_frames_launch_the_frame_kernels(card_engine, budget):
