@@ -29,6 +29,18 @@ Phases (every one must pass; a failure raises and exits non-zero):
      packed, sorted stream through the CUDA tile kernel and its plain
      version; the stage time of the column routes (columns + splat_resolve,
      pack_samples + tile resolve) on the same sample sets;
+ 4b. the helpers that carry the JAX package's public names, on phase 3's
+     state and frame, none made smaller: node_min_size + intersects_frustum
+     (with active_mask and the has-samples test) equal to the visibility
+     kernel's visible mask on every node slot; on the live point rows,
+     cell_at_level / cell_to_xyz / prefix_at_level / octant_at_level equal
+     to the octree build's voxel keys (key_words_at_level,
+     key_words_decode) at 3 levels of the tree; carry_last / next_start_pos
+     over the pool's used rows, pt_positions and node_min_size, card
+     against a CPU copy of the state (equal, or within 2 ulp: the largest
+     gap printed); Stats.zeros() and init_state() without a device on the
+     card, and the free bytes that EngineConfig.auto reads; each helper
+     timed by CUDA events;
   5. small streamed reference: the 60k file through Engine.frame(160, 120)
      until the stream drains (one step per item, frame_budget_ms 0) on the GPU
      and the CPU: with point_budget 0 equal Stats and images within 1 per
@@ -326,9 +338,10 @@ def phase_small_stream(tmp, device):
 
     def on_frame(eng, rgb, st):
         s = state_from_numpy(state_to_numpy(eng.state), "cpu")
-        pool = drawpool.pool_from_numpy(drawpool.pool_to_numpy(eng._draw_pool))
+        pool = drawpool.pool_from_numpy(drawpool.pool_to_numpy(eng._draw_pool),
+                                        "cpu")
         u = Uniforms.make(160, 120, eng.camera.transform(),
-                          eng._transform_update_bound, eng.settings)
+                          eng._transform_update_bound, eng.settings, "cpu")
         img, fs = render_frame_pooled(eng.cfg, s, pool, 160, 120, u,
                                       *eng.last_pooled_windows)
         check(int(fs.num_visible_points) == st.num_visible_points
@@ -1340,6 +1353,150 @@ def samples_vs_plain(cfg, u, sets, what: str, card: str):
 
 
 N_SHARDS = 4
+def phase_helpers(cfg, state, u, windows, card: str):
+    """Phase 4b: the helpers that carry the JAX package's public names
+    (octree/structures, ops/morton, ops/segments, render/frustum, the state
+    gathers, Stats.zeros), on the main path's loaded state and its exact
+    1080p frame, none made smaller. Exact cross-checks against the
+    visibility kernel and the octree build's voxel keys; card against a
+    CPU copy of the state; the device defaults; CUDA-event times."""
+    import numpy as np
+    import torch
+    from simlod_tpu_torch import config
+    from simlod_tpu_torch import constants as C
+    from simlod_tpu_torch.octree import structures as st
+    from simlod_tpu_torch.ops import morton, segments
+    from simlod_tpu_torch.render import frustum, raster, visibility
+    t_phase = time.perf_counter()
+    dev = state.device
+    times = {}
+
+    def timed(name, fn, reps=20):
+        times[name] = time_ms(fn, reps)
+        return fn()
+
+    # frustum: the helpers' mask against the visibility kernel's, every slot
+    with uncounted():
+        vis = visibility.compute_visibility(state, u)
+    mn, size = timed("node_min_size", lambda: st.node_min_size(state))
+    planes = frustum.frustum_planes(u.transform_update_bound)
+    inside = timed("intersects_frustum", lambda: frustum.intersects_frustum(
+        planes, mn, mn + size[:, None]))
+    active = timed("active_mask", lambda: st.active_mask(state))
+    timed("is_leaf", lambda: st.is_leaf(state))
+    has_samples = (state.num_points > 0) | (state.num_voxels > 0) \
+        | (state.child_base >= 0)
+    mask = active & inside & has_samples
+    n_slots, n_vis = mask.shape[0], int(vis.visible.sum())
+    check(torch.equal(mask, vis.visible),
+          f"helpers' frustum mask != the visibility kernel's visible on "
+          f"{int((mask != vis.visible).sum())} of {n_slots} node slots")
+
+    # segments: the live point rows of the pool from their segment starts
+    used = int(state.pool_used)
+    live_seg = state.seg_cnt > 0
+    off, cnt = state.seg_off[live_seg], state.seg_cnt[live_seg]
+    rows = torch.arange(used, dtype=torch.int32, device=dev)
+    markers = torch.full((used,), -1, dtype=torch.int32, device=dev)
+    markers[off.long()] = off
+    cnt_at = torch.zeros(used, dtype=torch.int32, device=dev)
+    cnt_at[off.long()] = cnt
+    starts = markers >= 0
+    seg_start = timed("carry_last", lambda: segments.carry_last(markers), 5)
+    nxt = timed("next_start_pos", lambda: segments.next_start_pos(starts), 5)
+    seg_end = seg_start + cnt_at[seg_start.clamp(min=0).long()]
+    live = (seg_start >= 0) & (rows < seg_end)
+    n_live = int(live.sum())
+    check(n_live == int(cnt.sum()) and bool((nxt[live] >= seg_end[live]).all()),
+          f"carry_last / next_start_pos: {n_live} live rows, segments "
+          f"hold {int(cnt.sum())}, or a segment runs into the next start")
+
+    # Morton: the cells of 3 levels of the tree, from the coordinates and
+    # from the octree build's voxel keys, with the prefixes and octants
+    w0, w1, w2 = state.pt_w0[:used][live], state.pt_w1[:used][live], \
+        state.pt_w2[:used][live]
+    q = morton.decode(w0, w1, w2)
+    lv = torch.unique(state.level[active]).tolist()
+    lv = [x for x in lv if x <= C.MAX_DEPTH - 1]
+    levels = sorted({lv[len(lv) // 4], lv[len(lv) // 2], lv[-1]})
+    for L in levels:     # the times kept are the last level's
+        cell = timed("cell_at_level", lambda: morton.cell_at_level(*q, L))
+        cxyz = timed("cell_to_xyz", lambda: morton.cell_to_xyz(cell))
+        pre = timed("prefix_at_level", lambda: morton.prefix_at_level(*q, L))
+        oct_ = timed("octant_at_level", lambda: morton.octant_at_level(*q, L))
+        k0, k1, k2l = morton.key_words_at_level(w0, w1, w2, L)
+        lvl, *kxyz = morton.key_words_decode(k0, k1, k2l)
+        kq = morton.decode(k0, k1, k2l & ~31)
+        shift = C.MAX_DEPTH + 1 - L
+        check(bool((lvl == L).all())
+              and all(torch.equal(a, b) for a, b in zip(cxyz, kxyz))
+              and all(torch.equal(a, b >> shift) for a, b in zip(pre, kq))
+              and torch.equal(oct_, ((kxyz[0] >> 6) << 2)
+                              | ((kxyz[1] >> 6) << 1) | (kxyz[2] >> 6)),
+              f"Morton helpers != the voxel keys at level {L}")
+    xyz = torch.stack(morton.dequantize_cols(*q, state.box_min,
+                                             state.cube_size), -1)
+    timed("quantize", lambda: morton.quantize(xyz, state.box_min,
+                                              state.cube_size))
+
+    # the card against a CPU copy of the state
+    t0 = time.perf_counter()
+    cpu = st.OctreeState(**{f.name: getattr(state, f.name).cpu()
+                            for f in dataclasses.fields(state)})
+    copy_s = time.perf_counter() - t0
+    check(torch.equal(seg_start.cpu(), segments.carry_last(markers.cpu()))
+          and torch.equal(nxt.cpu(), segments.next_start_pos(starts.cpu())),
+          "carry_last / next_start_pos: card != CPU")
+    pos = timed("pt_positions", state.pt_positions, 5)
+    t0 = time.perf_counter()
+    pos_cpu = cpu.pt_positions()
+    cpu_s = time.perf_counter() - t0
+    mn_cpu, size_cpu = st.node_min_size(cpu)
+    # ulp gaps: float32 bit patterns of one sign differ by their ulps
+    gaps = {"pt_positions": max(_bit_err(a.cpu(), b)
+                                for a, b in zip(pos, pos_cpu)),
+            "node_min_size": max(_bit_err(mn.cpu(), mn_cpu),
+                                 _bit_err(size.cpu(), size_cpu))}
+    check(max(gaps.values()) <= 2,
+          f"helpers on the card vs the CPU copy: ulp gaps {gaps}")
+
+    # the state gathers at the frame's windows
+    with uncounted():
+        for name, fn, w in (("gather_point_samples", raster.gather_point_samples,
+                             windows[0]),
+                            ("gather_voxel_samples", raster.gather_voxel_samples,
+                             windows[1])):
+            s = timed(name, lambda: fn(cfg, state, vis.emitted, w), 5)
+            check(int(s.count) > 0 and bool(s.valid.any()),
+                  f"{name}: nothing gathered")
+
+    # the device defaults: no device means the card
+    z = timed("Stats.zeros", lambda: config.Stats.zeros())
+    small = config.EngineConfig(**GOLDEN_CFG)
+    s0 = st.init_state(small, np.zeros(3, np.float32), np.ones(3, np.float32))
+    check(all(getattr(z, f.name).is_cuda for f in dataclasses.fields(z))
+          and s0.device.type == "cuda",
+          "Stats.zeros() / init_state() without a device not on the card")
+    free = config._device_memory_bytes(config.resolve_device())
+    auto = config.EngineConfig.auto(total_points=36_000_000)
+    say(f"helpers, exact 1080p frame on the main path's state "
+        f"({state.num_nodes.item()} nodes in {n_slots} slots, {used} pool "
+        f"rows, {n_live} live): "
+        f"frustum mask == visibility kernel's visible ({n_vis} slots); "
+        f"cells, prefixes, octants == voxel keys at levels {levels}; "
+        f"card == CPU copy, ulp gaps {gaps} (copy {copy_s:.2f} s, CPU "
+        f"pt_positions {cpu_s:.2f} s); max level "
+        f"{int(state.level[active].max())}; card: {card}")
+    say(f"defaults: Stats.zeros() and init_state() on {z.num_nodes.device}; "
+        f"EngineConfig.auto(total_points=36_000_000) reads {free} free bytes "
+        f"(torch.cuda.mem_get_info {torch.cuda.mem_get_info()[0]}): "
+        f"point_capacity {auto.point_capacity}, voxel_capacity "
+        f"{auto.voxel_capacity}, state {auto.estimated_state_bytes()} bytes")
+    say("helper ms by CUDA events, full width: " + json.dumps(
+        {k: round(v, 4) for k, v in times.items()}) + f"; card: {card}")
+    say(f"phase 4b: {time.perf_counter() - t_phase:.1f} s")
+
+
 # the fixtures of tests/test_sharded_engine.py and test_sharded_outofcore.py;
 # on 4 shards each slab puts ~10k points on every shard, so the out-of-core
 # pools hold 16,384 points (there 8,192 on 8 shards): still 4 x 16,384 < 80k
@@ -2023,6 +2180,10 @@ def main(argv=None) -> int:
             xrows[("exact", hqs)] = samples_vs_plain(
                 eng.cfg, u, sets, f"exact frame, hqs={hqs}", card)
         eng.settings.use_high_quality_shading = True
+
+        # --- phase 4b: the helpers on this state and frame ---
+        phase_helpers(eng.cfg, eng.state, eng.uniforms(W, H),
+                      eng.last_windows, card)
         eng.stream.stop()
         del eng, img, stats
         gc.collect()

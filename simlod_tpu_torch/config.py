@@ -7,6 +7,9 @@
                    switches (RenderFlags) and the visibility kernel's
                    values (UniformsHost) also as host values
   - Stats        : engine counters (mirrors HostDeviceInterface.h:46-71)
+
+Every function of the port that makes tensors takes `device`; none given means
+the card (`resolve_device`), and no card raises: CPU runs name "cpu".
 """
 from __future__ import annotations
 
@@ -18,6 +21,17 @@ import torch
 
 from . import constants as C
 from .render.frustum import frustum_planes_host
+
+
+def resolve_device(device=None, who: str = "Engine") -> torch.device:
+    """The torch device of a function that makes tensors: `device` where the
+    caller names one, else the card. A CUDA device where there is none raises
+    (there is no CPU fallback); `who` names the caller in the message."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device={device}): no CUDA device is "
+                           "available")
+    return device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,10 +112,13 @@ class EngineConfig:
              memory_bytes: int | None = None, **overrides) -> "EngineConfig":
         """Derive pool capacities from device memory and the dataset size
         (same policy as the JAX package: the state stays under ~45% of the
-        device's free memory; the rest is working space for sorts)."""
+        device's free memory; the rest is working space for sorts). Without
+        `memory_bytes` the budget is read from `device`, the card unless
+        another is named."""
         budget = memory_bytes
         if budget is None:
-            budget = _device_memory_bytes(device)
+            budget = _device_memory_bytes(
+                resolve_device(device, "EngineConfig.auto"))
         state_budget = int(budget * 0.45)
         if total_points is None:
             total_points = max(state_budget // 36, 1 << 22)
@@ -134,9 +151,8 @@ class EngineConfig:
         return cfg
 
 
-def _device_memory_bytes(device=None) -> int:
+def _device_memory_bytes(device: torch.device) -> int:
     """Free memory of a CUDA device, or half of physical RAM for the CPU."""
-    device = torch.device(device if device is not None else "cpu")
     if device.type == "cuda":
         free, _total = torch.cuda.mem_get_info(device)
         return int(free)
@@ -224,9 +240,10 @@ class Uniforms:
     def make(width: int, height: int, transform, transform_update_bound=None,
              settings: Settings | None = None, device=None) -> "Uniforms":
         """`transform` and `transform_update_bound` are host arrays (numpy or
-        CPU tensors): their float32 values are kept on the host too."""
+        CPU tensors): their float32 values are kept on the host too. The
+        tensors go to `device`, the card unless another is named."""
         s = settings or Settings()
-        device = torch.device(device if device is not None else "cpu")
+        device = resolve_device(device, "Uniforms.make")
         if transform_update_bound is None:
             transform_update_bound = transform
         t = np.asarray(torch.as_tensor(transform, dtype=torch.float32))
@@ -295,3 +312,19 @@ class Stats:
     num_segments: object
     mem_capacity_reached: object          # bool (reference: voxels.cu:896-912)
     render_truncated: object              # bool: last frame dropped samples
+
+    @staticmethod
+    def zeros(device=None) -> "Stats":
+        """The counters of a fresh single-root tree: 0-d int32 tensors (the
+        two flags bool) on `device`, the card unless another is named. Each
+        is its own element of one buffer, so none aliases another."""
+        device = resolve_device(device, "Stats.zeros")
+        names = [f.name for f in dataclasses.fields(Stats)]
+        flags = ("mem_capacity_reached", "render_truncated")
+        counts = [n for n in names if n not in flags]
+        ints = torch.tensor([int(n in ("num_nodes", "num_leaves"))
+                             for n in counts], dtype=torch.int32,
+                            device=device)
+        bools = torch.zeros(len(flags), dtype=torch.bool, device=device)
+        return Stats(**{n: ints[i] for i, n in enumerate(counts)},
+                     **{n: bools[i] for i, n in enumerate(flags)})

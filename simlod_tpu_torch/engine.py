@@ -32,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from .config import EngineConfig, Settings, Stats, Uniforms
+from .config import EngineConfig, Settings, Stats, Uniforms, resolve_device
 from .io.streaming import PointStream, scan_paths
 from .octree import build
 from .octree.structures import OctreeState, init_state
@@ -212,10 +212,7 @@ class Engine:
 
     def __init__(self, cfg: EngineConfig | None = None,
                  settings: Settings | None = None, device=None):
-        self.device = torch.device(device if device is not None else "cuda")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"Engine(device={self.device}): no CUDA device "
-                               "is available")
+        self.device = resolve_device(device, "Engine")
         # cfg=None: capacities come from device memory and the stream size at
         # open() (the reference sizes its buffer to 80% of free VRAM)
         self._auto_cfg = cfg is None

@@ -44,6 +44,12 @@ decode_count = 0
 decode_seconds = 0.0
 
 
+def available() -> bool:
+    """The LAZ decoder builds and loads: native.laz_available() (the port has
+    no other decoder)."""
+    return native.laz_available()
+
+
 def load_header(path: str) -> las.LasHeader:
     # the LAZ header is a LAS header (compression flagged in the format bits)
     return las.load_header(path)

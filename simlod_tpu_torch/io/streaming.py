@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..config import resolve_device
 from ..formats import las, laz, simlod
 
 BATCH_POINTS = 1_000_000   # loader batch granularity (reference MAX_BATCH_SIZE)
@@ -98,22 +99,22 @@ def scan_paths(paths) -> list[FileEntry]:
 class PointStream:
     """Threaded reader yielding device step batches.
 
-    Iterating yields (x, y, z, rgba, counts): [K, B] tensors on `device` (rgba as
-    int32 bit patterns) and a numpy int32 [K] of valid rows per step. The
-    tensors are ready to use on the consumer's current stream. With a sequence
-    of n devices (all of one type) each plane is a list of n [K, B/n] tensors,
-    block s on device s."""
+    Iterating yields (x, y, z, rgba, counts): [K, B] tensors on `device` (the
+    card unless another is named; rgba as int32 bit patterns) and a numpy
+    int32 [K] of valid rows per step. The tensors are ready to use on the
+    consumer's current stream. With a sequence of n devices (all of one type)
+    each plane is a list of n [K, B/n] tensors, block s on device s."""
 
     def __init__(self, paths, step_points: int, device=None,
                  num_loaders: int | None = None, ring_slots: int = 4,
                  batch_points: int = BATCH_POINTS, chunk_steps: int = 1,
                  box_override=None):
+        self.sharded = isinstance(device, (list, tuple))
+        devices = [resolve_device(d, "PointStream")
+                   for d in (device if self.sharded else [device])]
         self.entries = scan_paths(paths)
         if not self.entries:
             raise FileNotFoundError(f"no point cloud files under {paths!r}")
-        self.sharded = isinstance(device, (list, tuple))
-        devices = [torch.device(d) for d in device] if self.sharded \
-            else [torch.device(device if device is not None else "cpu")]
         # an index-less "cuda" names the current card (tensors report cuda:i)
         devices = [torch.device("cuda", torch.cuda.current_device())
                    if d.type == "cuda" and d.index is None else d

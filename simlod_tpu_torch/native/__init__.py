@@ -90,6 +90,32 @@ def load_laz() -> ctypes.CDLL:
     return _load("laszip_codec.c", _declare_laz)
 
 
+def _loads(load_lib) -> bool:
+    """True iff the library builds and loads (no compiler or a failed build
+    raises RuntimeError, a library that will not load OSError)."""
+    try:
+        load_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def available() -> bool:
+    """The point-record decoders build and load. Nothing in the port switches
+    on this: a decode without them raises."""
+    return _loads(load)
+
+
+def cols_available() -> bool:
+    """The column decoders load: the library of available() declares them."""
+    return available()
+
+
+def laz_available() -> bool:
+    """The LAZ codec builds and loads."""
+    return _loads(load_laz)
+
+
 def _f64(a) -> np.ndarray:
     a = np.ascontiguousarray(a, np.float64)
     if a.size != 3:

@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..config import EngineConfig
+from ..config import EngineConfig, resolve_device
+from ..ops import morton
 
 # fields that hold u32 words in the JAX package (int32 bit patterns here)
 U32_FIELDS = ("pt_rgba", "vox_rgba")
@@ -90,12 +91,25 @@ class OctreeState:
     def device(self) -> torch.device:
         return self.child_base.device
 
+    def pt_positions(self):
+        """Decoded world positions (x, y, z) f32 columns of every point-pool
+        row (not on the frame path)."""
+        qx, qy, qz = morton.decode(self.pt_w0, self.pt_w1, self.pt_w2)
+        return morton.dequantize_cols(qx, qy, qz, self.box_min, self.cube_size)
+
+    @property
+    def pt_xyz(self) -> torch.Tensor:
+        """pt_positions as one [P, 3] tensor (materialized; for inspection
+        and tests)."""
+        return torch.stack(self.pt_positions(), dim=-1)
+
 
 def init_state(cfg: EngineConfig, box_min, box_max, device=None) -> OctreeState:
     """Create the initial single-root state (the reference's reset.cu kernel).
 
-    The octree domain is the cube with edge max(extent) anchored at box_min."""
-    device = torch.device(device if device is not None else "cpu")
+    The octree domain is the cube with edge max(extent) anchored at box_min.
+    The tensors go to `device`, the card unless another is named."""
+    device = resolve_device(device, "init_state")
     n_cap = cfg.node_capacity
     rnd = lambda v, m: ((v + m - 1) // m) * m
     p_cap = rnd(cfg.point_capacity + cfg.working_capacity, 128)
@@ -137,6 +151,30 @@ def init_state(cfg: EngineConfig, box_min, box_max, device=None) -> OctreeState:
     )
 
 
+def node_min_size(state: OctreeState, ids=None):
+    """World-space AABB min corner [n, 3] and edge length [n] of the node ids
+    (default: every node slot), in the JAX package's op order:
+    size = cube_size / exp2(level), then box_min + size * (nx, ny, nz)."""
+    nx, ny, nz, lvl = state.nx, state.ny, state.nz, state.level
+    if ids is not None:
+        at = torch.as_tensor(ids, device=state.device).long()
+        nx, ny, nz, lvl = nx[at], ny[at], nz[at], lvl[at]
+    size = state.cube_size / torch.exp2(lvl.to(torch.float32))
+    mn = state.box_min[None, :] + size[:, None] * torch.stack(
+        [nx, ny, nz], dim=-1).to(torch.float32)
+    return mn, size
+
+
+def is_leaf(state: OctreeState) -> torch.Tensor:
+    return state.child_base < 0
+
+
+def active_mask(state: OctreeState) -> torch.Tensor:
+    """True on the node slots below the num_nodes watermark."""
+    return torch.arange(state.child_base.shape[0], dtype=torch.int32,
+                        device=state.device) < state.num_nodes
+
+
 def _cand_capacity(cfg: EngineConfig) -> int:
     """Voxel-store physical padding: covers the largest single append window so
     the watermark writes in build stay in bounds (vox_used never exceeds
@@ -160,8 +198,9 @@ def state_to_numpy(state: OctreeState) -> dict:
 
 def state_from_numpy(d: dict, device=None) -> OctreeState:
     """Inverse of state_to_numpy; also takes `{field: np.asarray(jax_field)}` of a
-    state the JAX package built."""
-    device = torch.device(device if device is not None else "cpu")
+    state the JAX package built. The tensors go to `device`, the card unless
+    another is named."""
+    device = resolve_device(device, "state_from_numpy")
     kw = {}
     for f in dataclasses.fields(OctreeState):
         a = np.asarray(d[f.name])

@@ -39,6 +39,19 @@ def _compact3(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
+def quantize(xyz, box_min, cube_size, bits: int = C.FULL_GRID_BITS):
+    """[N, 3] float positions -> [N, 3] int32 grid coords in [0, 2^bits), in the
+    JAX package's op order: divide by cube_size, then scale by 2^bits, floor,
+    clamp (quantize_cols multiplies by 2^bits / cube_size and rounds
+    differently). XLA's float -> int32 conversion saturates (NaN -> 0) and
+    torch's is undefined out of range, so the floored floats are first held
+    to [0, 2^bits] (exact in f32, unlike 2^bits - 1), NaN mapped to 0."""
+    g = float(1 << bits)
+    rel = (xyz - box_min.to(torch.float32)) / cube_size.to(torch.float32)
+    q = torch.floor(rel * g).nan_to_num(0.0).clamp(0.0, g).to(torch.int32)
+    return q.clamp(0, (1 << bits) - 1)
+
+
 def quantize_cols(x, y, z, box_min, cube_size, bits: int = C.FULL_GRID_BITS):
     """Float positions -> integer grid coords in [0, 2^bits), truncating like the
     reference (progressive_octree_voxels.cu:148-156), clamped at the max edge."""
@@ -91,6 +104,38 @@ def decode(w0, w1, w2):
         qz = qz | (_compact3(w) << lo)
         hi = lo
     return qx, qy, qz
+
+
+def octant_at_level(qx, qy, qz, level):
+    """Octant index taken when descending from a node at `level`: bit
+    (FULL_GRID_BITS - 1 - level) of each 28-bit coordinate, (x<<2)|(y<<1)|z."""
+    shift = (C.FULL_GRID_BITS - 1) - level
+    bx, by, bz = (qx >> shift) & 1, (qy >> shift) & 1, (qz >> shift) & 1
+    return ((bx << 2) | (by << 1) | bz).to(torch.int32)
+
+
+def cell_at_level(qx, qy, qz, level):
+    """Packed 21-bit cell index (cx << 14) | (cy << 7) | cz of a point in a
+    level-`level` node's 128^3 grid, c = (q >> (MAX_DEPTH + 1 - level)) & 127
+    (the reference's sampleVoxel leveling)."""
+    shift = (C.MAX_DEPTH + 1) - level
+    m = C.GRID_SIZE - 1
+    cx, cy, cz = (qx >> shift) & m, (qy >> shift) & m, (qz >> shift) & m
+    return ((cx << (2 * C.GRID_BITS)) | (cy << C.GRID_BITS)
+            | cz).to(torch.int32)
+
+
+def cell_to_xyz(cell):
+    """Unpack a 21-bit cell index to (cx, cy, cz) in [0, 128)."""
+    m = C.GRID_SIZE - 1
+    return (cell >> (2 * C.GRID_BITS)) & m, (cell >> C.GRID_BITS) & m, cell & m
+
+
+def prefix_at_level(qx, qy, qz, level):
+    """Per-axis coordinate prefixes of the (node, 128^3-cell) pair at `level`:
+    two points share a level-`level` voxel cell iff all three are equal."""
+    shift = (C.MAX_DEPTH + 1) - level
+    return qx >> shift, qy >> shift, qz >> shift
 
 
 def key_words_at_level(w0, w1, w2, level):

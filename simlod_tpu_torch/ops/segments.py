@@ -59,6 +59,19 @@ def expand_segments(sel_counts: torch.Tensor, out_len: int):
     return seg, elem, j < total, total
 
 
+def next_start_pos(starts: torch.Tensor) -> torch.Tensor:
+    """For each row, the position of the next run start strictly after it (n
+    if none), int32: the running minimum from the end, shifted by one row.
+    One row per input row, except that an empty input gives [0], as the JAX
+    package's does."""
+    n = starts.shape[0]
+    pos = torch.where(starts, iota(n, starts.device), n)
+    at_or_after = torch.flip(torch.cummin(torch.flip(pos, (0,)), 0).values,
+                             (0,))
+    return torch.cat([at_or_after[1:], torch.full(
+        (1,), n, dtype=torch.int32, device=starts.device)])
+
+
 def run_reduce_sum(values: torch.Tensor, starts: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
     """Sum `values` ([n] or [n, k]) over the runs that `starts` opens, masked
@@ -75,6 +88,15 @@ def run_reduce_sum(values: torch.Tensor, starts: torch.Tensor,
                       device=values.device)
     acc.index_add_(0, torch.where(rid >= 0, rid, n).long(), v)
     return acc[torch.where(rid >= 0, rid, n).long()].to(values.dtype)
+
+
+def carry_last(markers: torch.Tensor) -> torch.Tensor:
+    """Carry-forward of monotonically scattered markers: -1 at unmarked rows,
+    non-decreasing values at marked ones; each row receives the most recent
+    marker at or before it (-1 before the first). The running maximum, as the
+    JAX package's cummax; on CUDA torch's cummax also computes indices, so the
+    frame and build paths use take_last instead."""
+    return torch.cummax(markers, 0).values
 
 
 def take_last(markers: torch.Tensor, sentinel: int = -1) -> torch.Tensor:

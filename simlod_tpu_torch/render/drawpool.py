@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import EngineConfig
+from ..config import EngineConfig, resolve_device
 from ..octree.structures import OctreeState
 from ..ops import ragged
 from ..ops.segments import I32_MAX, iota, pack2
@@ -60,8 +60,9 @@ def pool_to_numpy(pool: DrawPool) -> dict:
 
 def pool_from_numpy(d: dict, device=None) -> DrawPool:
     """Inverse of pool_to_numpy; also takes `{field: np.asarray(jax_field)}` of
-    a pool the JAX package built."""
-    device = torch.device(device if device is not None else "cpu")
+    a pool the JAX package built. The tensors go to `device`, the card unless
+    another is named."""
+    device = resolve_device(device, "pool_from_numpy")
     kw = {}
     for f in DrawPool._fields:
         a = np.asarray(d[f])
@@ -241,3 +242,20 @@ def pool_voxel_source(state: OctreeState, pool: DrawPool,
     """The samples of a pool_voxel_spec plan -> raster.SampleSource."""
     return raster.voxel_source(state, plan, pool.v_k0, pool.v_k1, pool.v_k2l,
                                pool.v_rgba, plan.count)
+
+
+def gather_pool_points(cfg: EngineConfig, state: OctreeState, pool: DrawPool,
+                       take: torch.Tensor, window: int) -> raster.Samples:
+    """Each node's first `take` pooled points in a window of
+    (window // 128) * 128 rows, gathered into column-form Samples (the JAX
+    function of this name): pool_point_spec, its block plan,
+    pool_point_source, materialize. `cfg` is unused, as in the JAX package."""
+    plan = ragged.plan_blocks(*pool_point_spec(pool, take, window))
+    return raster.materialize(pool_point_source(state, pool, plan))
+
+
+def gather_pool_voxels(cfg: EngineConfig, state: OctreeState, pool: DrawPool,
+                       take: torch.Tensor, window: int) -> raster.Samples:
+    """gather_pool_points for the pooled voxels."""
+    plan = ragged.plan_blocks(*pool_voxel_spec(pool, take, window))
+    return raster.materialize(pool_voxel_source(state, pool, plan))

@@ -104,6 +104,17 @@ def state_point_source(state: OctreeState,
                         state.pt_rgba, state.seg_node, plan.count)
 
 
+def gather_point_samples(cfg: EngineConfig, state: OctreeState,
+                         emitted: torch.Tensor,
+                         window: int | None = None) -> Samples:
+    """The emitted nodes' point samples in a dense window, gathered into
+    column-form Samples (the JAX function of this name): point_spec, its
+    block plan, state_point_source, materialize. The frame paths keep the
+    source and let the splat kernel read it where it lies."""
+    plan = ragged.plan_blocks(*point_spec(cfg, state, emitted, window))
+    return materialize(state_point_source(state, plan))
+
+
 def voxel_positions_from_keys(box_min, cube_size, k0, k1, k2l):
     """Voxel cell-center world positions from global prefix keys; float op order
     matches the reference (sampleVoxel voxels.cu:103-115). Returns (x, y, z,
@@ -140,6 +151,15 @@ def state_voxel_source(state: OctreeState,
     positions are the cell centers of the global prefix keys."""
     return voxel_source(state, plan, state.vox_k0, state.vox_k1,
                         state.vox_k2l, state.vox_rgba, plan.count)
+
+
+def gather_voxel_samples(cfg: EngineConfig, state: OctreeState,
+                         emitted: torch.Tensor,
+                         window: int | None = None) -> Samples:
+    """gather_point_samples for the emitted nodes' voxels (voxel_spec,
+    state_voxel_source)."""
+    plan = ragged.plan_blocks(*voxel_spec(cfg, state, emitted, window))
+    return materialize(state_voxel_source(state, plan))
 
 
 def materialize(s) -> Samples:

@@ -76,7 +76,8 @@ def built():
     js = jb.build_many(jc, jinit(jc, np.zeros(3, np.float32), box_max),
                        jnp.asarray(px), jnp.asarray(py), jnp.asarray(pz),
                        jnp.asarray(cc), jnp.asarray(counts))
-    ts = tb.build_many(tc, tinit(tc, np.zeros(3, np.float32), box_max),
+    ts = tb.build_many(tc, tinit(tc, np.zeros(3, np.float32), box_max,
+                                 device="cpu"),
                        torch.from_numpy(px), torch.from_numpy(py),
                        torch.from_numpy(pz),
                        torch.from_numpy(cc.view(np.int32)), counts)
@@ -189,14 +190,14 @@ def test_compacted_voxels_equal_as_sets(built):
 
 def test_state_numpy_round_trip(built):
     _, _, raw, _ = built
-    t = state_from_numpy(raw[1])
+    t = state_from_numpy(raw[1], device="cpu")
     back = state_to_numpy(t)
     assert back.keys() == raw[1].keys()
     for k, v in raw[1].items():
         assert back[k].dtype == v.dtype, k
         np.testing.assert_array_equal(back[k], v, err_msg=k)
     # the JAX state's dict carries across with the same layout
-    j = state_to_numpy(state_from_numpy(raw[0]))
+    j = state_to_numpy(state_from_numpy(raw[0], device="cpu"))
     for f in dataclasses.fields(t):
         assert j[f.name].shape == raw[0][f.name].shape, f.name
         np.testing.assert_array_equal(j[f.name], raw[0][f.name], err_msg=f.name)

@@ -61,7 +61,7 @@ def states():
     xyz, rgba = _cloud()
     jc, tc = JCfg(**KW), TCfg(**KW)
     js = jinit(jc, [0, 0, 0], [1, 1, 1])
-    ts = tinit(tc, [0, 0, 0], [1, 1, 1])
+    ts = tinit(tc, [0, 0, 0], [1, 1, 1], device="cpu")
     for cx, cc, n in _steps(xyz, rgba, KW["step_points"]):
         js = jb.build_step(jc, js, *(jnp.asarray(np.ascontiguousarray(cx[:, k]))
                                      for k in range(3)),
@@ -88,7 +88,7 @@ def _voxels_by_identity(table):
 def test_filter_is_bit_equal_on_the_jax_state(states):
     jc, tc, _, jraw, _ = states
     jf = jcf.filter_colors(jc, state_from_numpy_jax(jraw))
-    tf = tcf.filter_colors(tc, state_from_numpy(jraw))
+    tf = tcf.filter_colors(tc, state_from_numpy(jraw, device="cpu"))
     vu = int(jf.vox_used)
     got = state_to_numpy(tf)["vox_rgba"]
     want = np.asarray(jf.vox_rgba)
@@ -101,14 +101,15 @@ def test_filter_on_the_port_built_state_matches_per_node_cell(states):
     jt = _voxels_by_identity(jin.node_table(jcf.filter_colors(
         jc, state_from_numpy_jax(jraw))))
     tt = _voxels_by_identity(tin.node_table(tcf.filter_colors(
-        tc, state_from_numpy(state_to_numpy(ts)))))
+        tc, state_from_numpy(state_to_numpy(ts), device="cpu"))))
     assert jt.keys() == tt.keys() and sum(map(len, jt.values())) > 1000
     assert jt == tt
 
 
 def test_level_windows_are_the_exact_sample_counts(states):
     jc, _, js, jraw, _ = states
-    n_vox, n_pts, n_store, max_level = tcf._level_counts(state_from_numpy(jraw))
+    n_vox, n_pts, n_store, max_level = tcf._level_counts(
+        state_from_numpy(jraw, device="cpu"))
     assert max_level == int(jraw["level"][:int(jraw["num_nodes"])].max())
     for lvl in range(max_level):
         jv, jp, jsd = (int(x) for x in jcf._level_counts(jc, js,
@@ -120,7 +121,7 @@ def test_level_windows_are_the_exact_sample_counts(states):
 def test_node_table_matches_jax(states):
     _, _, js, jraw, _ = states
     jt = jin.node_table(js)
-    tt = tin.node_table(state_from_numpy(jraw))
+    tt = tin.node_table(state_from_numpy(jraw, device="cpu"))
     assert jt.keys() == tt.keys() and len(jt) > 8
     for key in jt:
         for f, v in jt[key].items():
@@ -132,7 +133,7 @@ def test_node_table_matches_jax(states):
 
 def test_snapshot_and_voxel_cells_match_jax(states):
     _, _, js, jraw, _ = states
-    t = state_from_numpy(jraw)
+    t = state_from_numpy(jraw, device="cpu")
     np.testing.assert_array_equal(tin.voxel_cells(t), jin.voxel_cells(js))
     snap = tin.snapshot(t)
     for f in dataclasses.fields(t):

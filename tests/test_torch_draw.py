@@ -137,7 +137,8 @@ def scene():
         planes[:, k, :len(part)] = part.T
         cc[k, :len(part)] = rgba[k * B:(k + 1) * B]
         counts[k] = len(part)
-    ts = tb.build_many(cfg, init_state(cfg, np.zeros(3, np.float32), box_max),
+    ts = tb.build_many(cfg, init_state(cfg, np.zeros(3, np.float32), box_max,
+                                       device="cpu"),
                        *map(torch.from_numpy, planes),
                        torch.from_numpy(cc.view(np.int32)), counts)
     ts = tb.compact_voxels(cfg, ts)
@@ -175,7 +176,7 @@ def _uniforms(box_max, settings):
     c.world = orbit.world()
     kw = dict(min_node_size=8.0, enable_edl=False, **settings)
     return (JUni.make(W, H, c.transform(), settings=JSet(**kw)),
-            TUni.make(W, H, c.transform(), settings=TSet(**kw)))
+            TUni.make(W, H, c.transform(), settings=TSet(**kw), device="cpu"))
 
 
 def _jax_sets(cfg, js, jpool, ju, pooled, win):

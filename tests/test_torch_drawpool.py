@@ -69,7 +69,7 @@ def _uniforms(budget, hqs=True, edl=True):
     kw = dict(point_budget=budget, use_high_quality_shading=hqs,
               enable_edl=edl, min_node_size=8.0)
     return (JUni.make(W, H, t, settings=JSet(**kw)),
-            TUni.make(W, H, t, settings=TSet(**kw)))
+            TUni.make(W, H, t, settings=TSet(**kw), device="cpu"))
 
 
 def _np(a):
@@ -82,7 +82,8 @@ def scene():
     """(JAX state, port state, JAX pool, port pool built on the carried state)."""
     xyz, rgba = _cloud()
     js = build_state(xyz, rgba)
-    ts = state_from_numpy({k: np.asarray(v) for k, v in vars(js).items()})
+    ts = state_from_numpy({k: np.asarray(v) for k, v in vars(js).items()},
+                          device="cpu")
     ws = _windows(js)
     jpool = jdp.build_draw_pool(CFG, js, *ws, CFG.draw_cap)
     tpool = tdp.build_draw_pool(TCFG, ts, *ws, TCFG.draw_cap)
@@ -157,7 +158,8 @@ def test_pool_is_a_copy(scene):
 def test_budgets_masks_and_probe_match_jax(scene, budget):
     js, ts, jpool, _ = scene
     tpool = tdp.pool_from_numpy({k: np.asarray(v)
-                                 for k, v in jpool._asdict().items()})
+                                 for k, v in jpool._asdict().items()},
+                                device="cpu")
     ju, tu = _uniforms(budget)
     jv, tv = jvis.compute_visibility(js, ju), tvis.compute_visibility(ts, tu)
     np.testing.assert_array_equal(
@@ -195,7 +197,8 @@ def test_render_frame_pooled_matches_jax(scene, budget, hqs):
     jimg, jst = jrender.render_frame_pooled(CFG, js, jpool, W, H, ju,
                                             WIN, WIN, WIN, WIN)
     carried = tdp.pool_from_numpy({k: np.asarray(v)
-                                   for k, v in jpool._asdict().items()})
+                                   for k, v in jpool._asdict().items()},
+                                device="cpu")
     timg, tst = trender.render_frame_pooled(TCFG, ts, carried, W, H, tu,
                                             WIN, WIN, WIN, WIN)
     for f in jst._fields:
@@ -252,7 +255,8 @@ def test_render_frames_pooled_equals_single_frames(scene):
         o.yaw = yaw
         c.world = o.world()
         us.append(TUni.make(W, H, c.transform(),
-                            settings=TSet(point_budget=1.0, min_node_size=8.0)))
+                            settings=TSet(point_budget=1.0, min_node_size=8.0),
+                            device="cpu"))
     singles = [trender.render_frame_pooled(TCFG, ts, tpool, W, H, u,
                                            WIN, WIN, WIN, WIN) for u in us]
     img, st = trender.render_frames_pooled(TCFG, ts, tpool, W, H, us,

@@ -109,7 +109,8 @@ def test_jax_state_renders_the_same_in_both(slices, hqs):
     state_from_numpy, renders through the port like through the JAX package."""
     (jeng, _), _ = slices
     jstate = jeng.state
-    tstate = state_from_numpy({k: np.asarray(v) for k, v in vars(jstate).items()})
+    tstate = state_from_numpy(
+        {k: np.asarray(v) for k, v in vars(jstate).items()}, device="cpu")
     jeng.settings.use_high_quality_shading = hqs
     ju = jeng.uniforms(W, H)
     tu = TEngine(TCfg(**KW), TSet(min_node_size=8.0,

@@ -86,7 +86,7 @@ def _uniforms(t, budget=0.0, edl_strength=0.4):
     kw = dict(point_budget=budget, min_node_size=8.0,
               edl_strength=edl_strength)
     return (JUni.make(W, H, t, settings=JSet(**kw)),
-            TUni.make(W, H, t, settings=TSet(**kw)))
+            TUni.make(W, H, t, settings=TSet(**kw), device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -97,14 +97,16 @@ def scene():
     rgba = (rng.integers(0, 1 << 24, 6000, dtype=np.uint32)
             | np.uint32(0xFF000000))
     js = build_state(xyz, rgba)
-    ts = state_from_numpy({k: np.asarray(v) for k, v in vars(js).items()})
+    ts = state_from_numpy({k: np.asarray(v) for k, v in vars(js).items()},
+                          device="cpu")
     pool_w = 1 << max(jragged.window_for(
         int(js.pool_used), max(int(js.num_segments), 1)) - 1, 1).bit_length()
     vox_w = 1 << max(int(js.vox_compacted), 128).bit_length()
     node_w = 1 << max(int(js.num_nodes), 64).bit_length()
     jpool = jdp.build_draw_pool(CFG, js, pool_w, vox_w, node_w, CFG.draw_cap)
     tpool = tdp.pool_from_numpy({k: np.asarray(v)
-                                 for k, v in jpool._asdict().items()})
+                                 for k, v in jpool._asdict().items()},
+                                device="cpu")
     return js, ts, jpool, tpool
 
 

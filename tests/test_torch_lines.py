@@ -62,7 +62,7 @@ def _uniforms(hqs=False, boxes=True, budget=0.0, yaw=0.0):
     kw = dict(show_bounding_box=boxes, use_high_quality_shading=hqs,
               enable_edl=False, min_node_size=8.0, point_budget=budget)
     return (JUni.make(W, H, t, frozen, settings=JSet(**kw)),
-            TUni.make(W, H, t, frozen, settings=TSet(**kw)))
+            TUni.make(W, H, t, frozen, settings=TSet(**kw), device="cpu"))
 
 
 def _orbit():
@@ -78,7 +78,8 @@ def scene():
     xyz = rng.random((6000, 3), dtype=np.float32) * 0.9 + 0.05
     rgba = rng.integers(0, 1 << 24, 6000, dtype=np.uint32) | np.uint32(0xFF << 24)
     js = build_state(xyz, rgba)
-    ts = state_from_numpy({k: np.asarray(v) for k, v in vars(js).items()})
+    ts = state_from_numpy({k: np.asarray(v) for k, v in vars(js).items()},
+                          device="cpu")
     return js, ts
 
 
@@ -188,7 +189,8 @@ def test_pooled_frame_with_boxes_matches_jax(scene, hqs):
     ws = (1 << 16, 1 << 17, 1 << 13)
     jpool = jdp.build_draw_pool(CFG, js, *ws, CFG.draw_cap)
     tpool = tdp.pool_from_numpy({k: np.asarray(v)
-                                 for k, v in jpool._asdict().items()})
+                                 for k, v in jpool._asdict().items()},
+                                device="cpu")
     jimg, _ = jrender.render_frame_pooled(CFG, js, jpool, W, H, ju,
                                           WIN, WIN, WIN, WIN)
     timg, _ = trender.render_frame_pooled(TCFG, ts, tpool, W, H, tu,

@@ -106,7 +106,7 @@ def test_cpu_frames_use_the_plain_version_and_count_no_launch():
         count=torch.tensor(n))
     m = np.zeros((4, 4), np.float32)
     m[0, 0] = m[1, 1] = m[3, 2] = 1.0
-    u = Uniforms.make(64, 48, m)
+    u = Uniforms.make(64, 48, m, device="cpu")
     color, depth = raster_tiles.rasterize_tiles(EngineConfig(), u, 64, 48, [s])
     _, ref_d = raster.rasterize(EngineConfig(), u, 64, 48, [s])
     np.testing.assert_array_equal(depth.numpy(), ref_d.numpy())

@@ -61,7 +61,8 @@ def _uniforms(box_max, yaw, pitch, hqs, min_node_size=8.0):
     cam.world = orbit.world()
     kw = dict(use_high_quality_shading=hqs, min_node_size=min_node_size)
     return (JUni.make(W, H, cam.transform(), settings=JSet(**kw)),
-            TUni.make(W, H, cam.transform(), settings=TSet(**kw)))
+            TUni.make(W, H, cam.transform(), settings=TSet(**kw),
+                      device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +80,8 @@ def states():
         planes[:, k, :len(part)] = part.T
         cc[k, :len(part)] = rgba[k * B:(k + 1) * B]
         counts[k] = len(part)
-    ts = tb.build_many(cfg, init_state(cfg, np.zeros(3, np.float32), box_max),
+    ts = tb.build_many(cfg, init_state(cfg, np.zeros(3, np.float32), box_max,
+                                       device="cpu"),
                        *map(torch.from_numpy, planes),
                        torch.from_numpy(cc.view(np.int32)), counts)
     ts = tb.compact_voxels(cfg, ts)
@@ -150,7 +152,8 @@ def _ortho(hqs):
     m = np.zeros((4, 4), np.float32)
     m[0, 0] = m[1, 1] = m[3, 2] = 1.0
     kw = dict(use_high_quality_shading=hqs, enable_edl=False)
-    return JUni.make(W, H, m, settings=JSet(**kw)), TUni.make(W, H, m, settings=TSet(**kw))
+    return (JUni.make(W, H, m, settings=JSet(**kw)),
+            TUni.make(W, H, m, settings=TSet(**kw), device="cpu"))
 
 
 @pytest.mark.parametrize("hqs", [True, False])

@@ -62,7 +62,7 @@ def _uniforms(box_max, **settings):
     kw.update(settings)
     t = c.transform()
     return (JU.make(W, H, t, settings=JSet(**kw)),
-            TU.make(W, H, t, settings=TSet(**kw)))
+            TU.make(W, H, t, settings=TSet(**kw), device="cpu"))
 
 
 def _columns(xyz, rgba):

@@ -71,7 +71,7 @@ def _ortho(hqs, point_size=1):
     kw = dict(use_high_quality_shading=hqs, enable_edl=False,
               point_size=point_size)
     return (JUni.make(W, H, m, settings=JSet(**kw)),
-            TUni.make(W, H, m, settings=TSet(**kw)))
+            TUni.make(W, H, m, settings=TSet(**kw), device="cpu"))
 
 
 def _eq(j, t):
