@@ -41,6 +41,19 @@ Phases (every one must pass; a failure raises and exits non-zero):
      gap printed); Stats.zeros() and init_state() without a device on the
      card, and the free bytes that EngineConfig.auto reads; each helper
      timed by CUDA events;
+ 4c. Engine.render's CUDA graphs on phase 3's state: whether a
+     cudaLaunchCooperativeKernel launch captures into a graph (the answer
+     is printed); visibility and the frame's plans timed inside graphs (a
+     graph of one call replayed, a graph of 20 back to back) against the
+     same eager calls; then (phase_graphs) the graph frame held bit-equal,
+     image and Stats, to the eager frame of its key over 20 orbit cameras
+     and across a window change, EDL off, HQS off, boxes on, each colour
+     mode, the tile route and a compaction (a changed key captures again);
+     the launch counters over 5 replays; the capture count and ms; the
+     memory a graph holds and the peak with and without graphs; device ms
+     a frame (the replay and the eager span back to back) and host µs to
+     issue it; Engine.render's median with its graph against the same call
+     without one, interleaved;
   5. small streamed reference: the 60k file through Engine.frame(160, 120)
      until the stream drains (one step per item, frame_budget_ms 0) on the GPU
      and the CPU: with point_budget 0 equal Stats and images within 1 per
@@ -54,6 +67,8 @@ Phases (every one must pass; a failure raises and exits non-zero):
   7. post-load pooled vs exact 1080p frame on that loaded state, each also
      through both routes in turn (bit-equal images, both routes timed), and
      profiled at the auto-focus view;
+ 7b. phase 4c's graph checks and numbers on the post-load pooled frame (a
+     pool rebuild among the switches) and the post-load exact frame;
   8. kernels against plain versions on the pooled frame's four sample sets
      (pool points, pool voxels, exact points, exact voxels), both modes;
   9. small references with the new modules, GPU against CPU: the 60k file with
@@ -131,7 +146,10 @@ counted).
 Phases 15-16 run 4 shards on one card: they show the sharded path works
 there, not how it scales over cards.
 
-It prints a JSON line with the kernels' launches, errors, times and bounds,
+Every frame of Engine.render on the card (phases 3, 4c, 7, 7b, 10, 12, 17)
+replays a CUDA graph of its key; the launch counters add each replay's
+launches. It prints a JSON line with the graph phases' numbers, then one
+with the kernels' launches, errors, times and bounds,
 the card line, and as its last line {"ok": true, "device": {...}}. Without a
 CUDA device it exits 1.
 """
@@ -818,10 +836,10 @@ class uncounted:
     to compare a kernel with its plain version are not the path's."""
 
     def __enter__(self):
-        from simlod_tpu_torch.render import raster
+        from simlod_tpu_torch.render import raster, raster_tiles
         self.saved = [(f, f.launches) for f in (
             raster.splat_samples, raster.splat_resolve,
-            *frame_kernels().values())]
+            raster_tiles.tile_resolve, *frame_kernels().values())]
 
     def __exit__(self, *exc):
         for f, n in self.saved:
@@ -863,6 +881,8 @@ def frame_kernel_entry(name: str, fk_rows: dict) -> dict:
                                "bound_ms": bound, "max_abs_err": err}
         out["host_us_per_call"] = {k: v for k, v in HOST_US.items()
                                    if "edl" in k}
+    if name in COOP_GRAPH:
+        out["in_cuda_graph"] = COOP_GRAPH[name]
     if name in FK_LAUNCH:
         out["launch_floor_ms"] = LAUNCH_FLOOR
         out["host_us_per_call"] = HOST_US
@@ -890,6 +910,8 @@ FK_LAUNCH = {"visibility": {}, "plan_blocks": {}}
 LAUNCH_FLOOR = {}
 # host µs per call of the cooperative kernels' launch path (host_breakdown)
 HOST_US = {}
+# the cooperative kernels timed inside CUDA graphs (coop_kernels_in_graph)
+COOP_GRAPH = {}
 
 
 def launch_floor(dev, card: str):
@@ -951,6 +973,10 @@ def _timed(fn, plain, name: str):
 
 def dev_text(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def us_text(us) -> str:
+    return "not measured" if us is None else f"{us:.1f} µs"
 
 
 def device_text(queued, prof) -> str:
@@ -1495,6 +1521,509 @@ def phase_helpers(cfg, state, u, windows, card: str):
     say("helper ms by CUDA events, full width: " + json.dumps(
         {k: round(v, 4) for k, v in times.items()}) + f"; card: {card}")
     say(f"phase 4b: {time.perf_counter() - t_phase:.1f} s")
+
+
+class EagerFrames:
+    """Stands in for Engine.graphs: runs each frame's span eagerly, so that
+    Engine.render is the same call without a graph (the graph frame's
+    yardstick)."""
+    captures = replays = 0
+
+    def run(self, key, span, device):
+        return span()
+
+    def clear(self):
+        pass
+
+
+def host_us(fn, reps: int = 20):
+    """Host µs per call of fn while a spin kernel holds the device: the
+    time the host takes to issue fn's work, never waiting on the device
+    (the spin is doubled until its event was still pending after the last
+    call); None if it never was."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    for _ in range(8):
+        a = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t0
+        ahead = not a.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return dt / reps * 1e6
+        cycles *= 2
+    return None
+
+
+def eager_span(eng):
+    """The eager span of the key of eng's last render: render_frame (or
+    render_frame_pooled) at the windows it used, on uniforms of the same
+    values in tensors of their own, then the Stats stack."""
+    from simlod_tpu_torch.engine import _frame_stack
+    from simlod_tpu_torch.render.render import (render_frame,
+                                                render_frame_pooled)
+    u = eng.uniforms(W, H)
+    cfg, state, pool = eng.cfg, eng.state, eng._draw_pool
+    if eng.settings.point_budget > 0:
+        ws = eng.last_pooled_windows
+
+        def span():
+            img, fs = render_frame_pooled(cfg, state, pool, W, H, u, *ws)
+            return img, _frame_stack(state, fs)
+    else:
+        ws = eng.last_windows
+
+        def span():
+            img, fs = render_frame(cfg, state, W, H, u, *ws)
+            return img, _frame_stack(state, fs)
+    return span
+
+
+def graph_equals_eager(eng, what: str) -> float:
+    """eng.render (a replay of its key's graph) against the eager span of
+    the same key: the image bit for bit and every Stats counter. Returns
+    the share of pixels drawn."""
+    import torch
+    from simlod_tpu_torch import constants as C
+    from simlod_tpu_torch.engine import _STATS, _to_stats
+    replays = eng.graphs.replays
+    img, stats = eng.render(W, H)
+    check(eng.graphs.replays == replays + 1,
+          f"graph frames, {what}: Engine.render replayed no graph")
+    with uncounted():
+        want, stack = eager_span(eng)()
+    torch.cuda.synchronize()
+    diff = int((img != want).sum())
+    check(diff == 0, f"graph frames, {what}: {diff} pixels differ from the "
+          "eager frame of the same key")
+    check(stats == _to_stats(dict(zip(_STATS, stack.tolist()))),
+          f"graph frames, {what}: Stats differ from the eager frame's")
+    return coverage(img, C)
+
+
+def coop_capture_answer(dev, card: str) -> str:
+    """Whether a cudaLaunchCooperativeKernel launch (the way visibility and
+    plan_many launch) captures into a CUDA graph and replays: the empty
+    kernel through the frame kernels' ctypes path, captured alone."""
+    import torch
+    from simlod_tpu_torch import kernels
+    from simlod_tpu_torch.render.render import capture_cuda_graph
+    try:
+        with uncounted():
+            g = capture_cuda_graph(lambda: kernels.noop(dev, True), dev)
+            g.replay()
+            torch.cuda.synchronize()
+        answer = ("cudaLaunchCooperativeKernel captures into a CUDA graph "
+                  "and replays")
+    except RuntimeError as e:
+        answer = f"cudaLaunchCooperativeKernel does not capture: {e}"
+    say(f"cooperative capture (nvcc {nvcc_version()}, torch "
+        f"{torch.__version__} cu{torch.version.cuda}): {answer}; card: {card}")
+    return answer
+
+
+def nvcc_version() -> str:
+    from simlod_tpu_torch import kernels
+    out = subprocess.run([kernels._nvcc(), "--version"], capture_output=True,
+                         text=True).stdout
+    return out.strip().splitlines()[-1] if out.strip() else "unknown"
+
+
+# the graph phases' numbers, by phase: printed as one JSON line at the end
+GRAPHS = {}
+
+
+def coop_kernels_in_graph(eng, card: str) -> dict:
+    """ROADMAP queue 2 item 2: visibility and the frame's plans (one
+    batched call) on eng's exact frame, timed inside CUDA graphs against
+    the same eager calls: ms per call by CUDA events around back-to-back
+    calls as the host issues them (a graph of one call replayed, or the
+    eager call), and device ms per call back to back with the host out of
+    the way (a graph of 20 calls replayed, or 20 eager calls: queued_ms)."""
+    import torch
+    from simlod_tpu_torch.ops import ragged
+    from simlod_tpu_torch.render import raster, visibility
+    from simlod_tpu_torch.render.render import (_trim_directories,
+                                                capture_cuda_graph)
+    u = eng.uniforms(W, H)
+    pw, vw, nw, sw = eng.last_windows
+    st = _trim_directories(eng.state, nw, sw)
+    dev = st.child_base.device
+    out = {}
+    with uncounted():
+        vis = visibility.compute_visibility_cuda(st, u)
+        specs = [raster.point_spec(eng.cfg, st, vis.emitted, pw),
+                 raster.voxel_spec(eng.cfg, st, vis.emitted, vw)]
+        calls = {"visibility": lambda: visibility.compute_visibility_cuda(
+                     st, u),
+                 "plan_blocks": lambda: ragged.plan_blocks_many_cuda(specs)}
+        for name, fn in calls.items():
+            one = capture_cuda_graph(fn, dev)
+            many = capture_cuda_graph(lambda: [fn() for _ in range(20)], dev)
+            row = {"graph_call_ms": time_ms(one.graph.replay),
+                   "graph_ms": queued_ms(many.graph.replay, reps=5),
+                   "eager_call_ms": time_ms(fn), "eager_ms": queued_ms(fn)}
+            if row["graph_ms"] is not None:
+                row["graph_ms"] /= 20
+            out[name] = row
+            say(f"{name} inside a CUDA graph, exact frame: "
+                f"{row['graph_call_ms']:.4f} ms per call by CUDA events (a "
+                f"graph of one call replayed; eager "
+                f"{row['eager_call_ms']:.4f}), {dev_text(row['graph_ms'])} "
+                f"per call on the device back to back (a graph of 20; eager "
+                f"{dev_text(row['eager_ms'])}); card: {card}")
+            del one, many
+    return out
+
+
+def eager_parts_host_us(eng) -> dict:
+    """Host µs to issue each stage of the eager span of eng's last frame
+    while a spin kernel holds the device (host_us; None: the stage waited on
+    the device): LOD selection and plans (frame_samples or
+    pooled_frame_samples), visibility alone, the splat, EDL and the Stats
+    stack."""
+    from simlod_tpu_torch.engine import _frame_stack
+    from simlod_tpu_torch.render import raster, visibility
+    from simlod_tpu_torch.render import render as R
+    u = eng.uniforms(W, H)
+    cfg, state, pool = eng.cfg, eng.state, eng._draw_pool
+    if eng.settings.point_budget > 0:
+        ws = eng.last_pooled_windows
+        nw = ws[4]
+        samples = lambda: R.pooled_frame_samples(cfg, state, pool, u, *ws)
+        vis = lambda: visibility.compute_visibility(
+            R._trim_directories(state, *ws[4:]), u, R._trim_pool(pool, nw),
+            cfg)
+    else:
+        ws = eng.last_windows
+        samples = lambda: R.frame_samples(cfg, state, u, *ws)
+        vis = lambda: visibility.compute_visibility(
+            R._trim_directories(state, *ws[2:]), u)
+    v, sets, trunc = samples()
+    color, depth = raster.rasterize(cfg, u, W, H, sets)
+    fstats = R._frame_stats(v, trunc)
+    parts = {"visibility": vis, "visibility + plans + sources": samples,
+             "splat": lambda: raster.rasterize(cfg, u, W, H, sets),
+             "edl": lambda: raster.edl(color, depth, u, W, H),
+             "stats stack": lambda: _frame_stack(state, fstats)}
+    with uncounted():
+        return {k: host_us(fn) for k, fn in parts.items()}
+
+
+def render_host_us(eng, frames: int = 20) -> dict:
+    """Wall µs per Engine.render of each of its steps (the marks read, the
+    compaction policy, the uniform write, the windows, the graph's run and
+    the stats read), timed by wrapping the engine's methods over `frames`
+    frames of the current key; "rest": the key, the image copy, the device
+    sync and the Python around them."""
+    names = ("_marks", "_maybe_compact", "_frame_uniforms", "_windows",
+             "_pooled_args", "_ensure_draw_pool", "_after_frame")
+    spent = dict.fromkeys((*names, "graphs.run"), 0.0)
+
+    def timed(fn, name):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+    graphs = eng.graphs
+    for n in names:
+        setattr(eng, n, timed(getattr(eng, n), n))
+    run = graphs.run
+    graphs.run = timed(run, "graphs.run")
+    try:
+        eng.render(W, H)
+        for k in spent:
+            spent[k] = 0.0
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            eng.render(W, H)
+        total = time.perf_counter() - t0
+    finally:
+        for n in names:
+            delattr(eng, n)
+        del graphs.run
+    out = {k: v / frames * 1e6 for k, v in spent.items() if v}
+    out["rest"] = total / frames * 1e6 - sum(out.values())
+    out["total"] = total / frames * 1e6
+    return out
+
+
+def graph_memory(eng, what: str, card: str) -> dict:
+    """MB over the memory eng's state holds: the peak over two eager frames
+    of the current key, the peak over the capture of its graph (warm-up
+    frame included), what the live graph holds allocated (its outputs) and
+    what its private pool reserves."""
+    import torch
+    graphs = eng.graphs
+    graphs.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng.graphs = EagerFrames()
+    eng.render(W, H)
+    eng.render(W, H)
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    eng.graphs = graphs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    eng.render(W, H)
+    torch.cuda.synchronize()
+    graph_peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved() - reserved
+    mb = {"eager_frame_peak": eager_peak / 2**20,
+          "graph_capture_peak": graph_peak / 2**20,
+          "graph_allocated": held / 2**20, "graph_reserved": pool / 2**20}
+    say(f"graph memory, {what}: peak over an eager frame "
+        f"+{mb['eager_frame_peak']:.1f} MB, over a capture "
+        f"+{mb['graph_capture_peak']:.1f} MB; the live graph holds "
+        f"{mb['graph_allocated']:.1f} MB allocated and reserves "
+        f"{mb['graph_reserved']:.1f} MB; card: {card}")
+    return mb
+
+
+def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
+                 tile_memory: bool = False):
+    """Engine.render's CUDA graphs on eng's state (phases 4c and 7b):
+    graph frames bit-equal to the eager frame of the same key over `orbit`
+    cameras around the current view and across `toggles` ((name, action,
+    undo): a Settings switch, the tile route, a window change, a
+    compaction, a pool rebuild), each of which must capture again where it
+    changes the key; the launch counters count replays; the capture count
+    and ms; the memory a graph holds and the peak with and without graphs
+    (graph_memory; the tile route's too, with tile_memory); per-frame device ms (the graph replayed against the eager span, both
+    back to back: queued_ms) and host µs to issue it (host_us);
+    Engine.render's wall ms with the graph against the same call without
+    (EagerFrames), interleaved as route_pair does. Fills GRAPHS[what]."""
+    import numpy as np
+    import torch
+    from simlod_tpu_torch.render.render import frame_key
+    graphs = eng.graphs
+    row = GRAPHS.setdefault(what, {})
+    captures0, secs0 = graphs.captures, graphs.capture_seconds
+    row["memory_mb"] = graph_memory(eng, what, card)
+    if tile_memory:
+        eng.cfg = dataclasses.replace(eng.cfg, use_tile_raster=True)
+        row["memory_mb_tile_route"] = graph_memory(eng, f"{what}, tile route",
+                                                   card)
+        eng.cfg = dataclasses.replace(eng.cfg, use_tile_raster=False)
+    # the orbit
+    yaw0 = eng.orbit.yaw
+    drawn = []
+    for k in range(orbit):
+        eng.orbit.yaw = yaw0 + 0.1 * k
+        eng.camera.world = eng.orbit.world()
+        drawn.append(graph_equals_eager(eng, f"{what}, orbit camera {k}"))
+    eng.orbit.yaw = yaw0
+    eng.camera.world = eng.orbit.world()
+    orbit_captures = graphs.captures - captures0
+    check(min(drawn) > 0, f"graph frames, {what}: a frame drew nothing")
+    # the switches: each frame bit-equal, a changed key captured again
+    recaptured = {}
+    for name, action, undo in toggles:
+        graph_equals_eager(eng, f"{what}, before {name}")
+        c = graphs.captures
+        action()
+        graph_equals_eager(eng, f"{what}, {name}")
+        graph_equals_eager(eng, f"{what}, {name}, replayed")
+        recaptured[name] = graphs.captures - c
+        undo()
+    say(f"graph frames, {what}: {orbit} orbit cameras (+0.1 rad each) "
+        f"bit-equal to the eager frames of their keys ({orbit_captures} "
+        f"captures: the windows follow the visible counts); the switches "
+        f"bit-equal too, captures each {json.dumps(recaptured)}; card: "
+        f"{card}")
+    row["orbit_frames"], row["orbit_captures"] = orbit, orbit_captures
+    row["switch_captures"] = recaptured
+    # the launch counters count replays (the windows settle first)
+    for _ in range(4):
+        eng.render(W, H)
+    counted = {**frame_kernels()}
+    from simlod_tpu_torch.render import raster
+    counted["splat_samples"] = raster.splat_samples
+    with uncounted():
+        for f in counted.values():
+            f.launches = 0
+        c, r = graphs.captures, graphs.replays
+        for _ in range(5):
+            eng.render(W, H)
+        got = {n: f.launches for n, f in counted.items()}
+        check(graphs.captures == c and graphs.replays == r + 5,
+              f"{what}: five frames of one key were not five replays")
+        check(all(v >= 5 for v in got.values())
+              and got["plan_blocks"] == got["edl"] == got["splat_samples"]
+              == 5, f"{what}: launch counters over 5 replays: {got}")
+    say(f"launch counters over 5 replays, {what}: {json.dumps(got)}; card: "
+        f"{card}")
+    # per-frame device ms and host µs: the graph's replay and the eager span
+    # 8 frames a run: 20 eager frames of ~60 launches overfill the stream's
+    # launch queue (~1,000 launches), and the host then waits on the device
+    latest = graphs.latest()
+    span = eager_span(eng)
+    stats0 = torch.cuda.memory_stats()
+    with uncounted():
+        dev_graph, dev_eager = (queued_ms(latest.replay, reps=8),
+                                queued_ms(span, reps=8))
+        host_graph, host_eager = (host_us(latest.replay, reps=8),
+                                  host_us(span, reps=8))
+    stats1 = torch.cuda.memory_stats()
+    if None in (dev_graph, dev_eager, host_graph, host_eager):
+        # the host waited on the device inside a frame: say whether the
+        # allocator did it (a cudaMalloc or cudaFree, a retry after OOM) or
+        # a synchronizing torch op (torch's sync debug mode names it)
+        import warnings
+        with warnings.catch_warnings(record=True) as caught, uncounted():
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                span()
+                latest.replay()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        say(f"{what}: a frame waited on the device while it was held; "
+            "allocator calls meanwhile: " + json.dumps(
+                {k: stats1.get(k, 0) - stats0.get(k, 0) for k in (
+                    "num_alloc_retries", "num_device_alloc",
+                    "num_device_free", "num_sync_all_streams")})
+            + "; synchronizing ops of one eager span and one replay: "
+            + json.dumps([str(w.message)[:300] for w in caught][:4]))
+    u = eng._frame_uniforms(W, H)
+    ws = eng.last_pooled_windows if eng.settings.point_budget > 0 \
+        else eng.last_windows
+    pool = eng._draw_pool if eng.settings.point_budget > 0 else None
+    t0 = time.perf_counter()
+    for _ in range(100):
+        frame_key(eng.cfg, W, H, ws, u, eng.state, pool)
+    key_us = (time.perf_counter() - t0) * 1e4
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eng._frame_uniforms(W, H)
+    uni_us = (time.perf_counter() - t0) * 5e4
+    # a moving camera: the app's orbit step, every frame a new view
+    moving = {}
+    yaw0 = eng.orbit.yaw
+    for name in ("graph", "eager", "eager", "graph"):
+        eng.graphs = graphs if name == "graph" else EagerFrames()
+        eng.graphs.clear()
+        eng.orbit.yaw = yaw0
+        c = graphs.captures
+        frame_ms = []
+        for _ in range(60):
+            eng.orbit.yaw += 2.0 * np.pi / 60
+            eng.camera.world = eng.orbit.world()
+            t1 = time.perf_counter()
+            eng.render(W, H)
+            frame_ms.append((time.perf_counter() - t1) * 1e3)
+        moving.setdefault(name, []).append(
+            [float(np.mean(frame_ms)), float(np.median(frame_ms)),
+             max(frame_ms), graphs.captures - c if name == "graph" else 0])
+    eng.graphs = graphs
+    eng.orbit.yaw = yaw0
+    eng.camera.world = eng.orbit.world()
+    row["moving_camera_mean_median_max_ms_captures"] = moving
+    say(f"moving camera, {what}: 60 frames of the app's orbit (2 pi / 60 "
+        f"rad a frame), mean / median / max ms and captures, two runs each "
+        f"in turns: with graphs {json.dumps(moving['graph'])}, eager "
+        f"{json.dumps(moving['eager'])}; card: {card}")
+    parts = eager_parts_host_us(eng)
+    steps = render_host_us(eng)
+    row.update(eager_stage_host_us=parts, render_step_us=steps)
+    say(f"host µs, {what}: to issue each stage of the eager frame "
+        f"{json.dumps({k: v and round(v, 1) for k, v in parts.items()})}; "
+        f"per step of Engine.render with its graph "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}; card: "
+        f"{card}")
+    # Engine.render with its graph against the same call without one
+    ms = {True: [], False: []}
+    for i in range(11):
+        for g in ((True, False) if i % 2 else (False, True)):
+            eng.graphs = graphs if g else EagerFrames()
+            t1 = time.perf_counter()
+            eng.render(W, H)
+            dt = (time.perf_counter() - t1) * 1e3
+            if i:
+                ms[g].append(dt)
+    eng.graphs = graphs
+    med = float(np.median(ms[True])), float(np.median(ms[False]))
+    n_caps = graphs.captures - captures0
+    cap_ms = (graphs.capture_seconds - secs0) * 1e3 / max(n_caps, 1)
+    row.update(frame_ms_graph_eager=med, frame_ms_graph=ms[True],
+               frame_ms_eager=ms[False], device_ms_graph_eager=[dev_graph,
+                                                               dev_eager],
+               host_us_graph_eager=[host_graph, host_eager], key_us=key_us,
+               uniform_write_us=uni_us, captures=n_caps,
+               ms_per_capture=cap_ms)
+    say(f"Engine.render, {what}, with its CUDA graph vs without "
+        f"(interleaved, 10 each): median {med[0]:.3f} ms vs {med[1]:.3f} ms "
+        f"({', '.join(f'{t:.2f}' for t in ms[True])} | "
+        f"{', '.join(f'{t:.2f}' for t in ms[False])}); device ms a frame "
+        f"back to back: graph {dev_text(dev_graph)}, eager span "
+        f"{dev_text(dev_eager)}; host µs to issue a frame: graph replay "
+        f"{us_text(host_graph)}, eager span {us_text(host_eager)}; "
+        f"frame_key {key_us:.1f} µs, the uniform write {uni_us:.1f} µs; "
+        f"{n_caps} captures in this phase, {cap_ms:.1f} ms each (warm-up "
+        f"frame included); card: {card}")
+
+
+def graph_toggles(eng, pooled: bool) -> list:
+    """(name, action, undo) for each switch phase_graphs crosses: a window
+    change, EDL off, HQS off, boxes on, each colour mode, the tile route, a
+    compaction and, on a pooled frame, a pool rebuild."""
+    st = eng.settings
+
+    def setting(name, value):
+        old = getattr(st, name)
+        return (lambda: setattr(st, name, value),
+                lambda: setattr(st, name, old))
+
+    def windows():
+        saved = {}
+
+        def action():
+            for a in ("_last_windows", "_last_visible", "_cached_pool_ws"):
+                saved[a] = getattr(eng, a, None)
+            eng._last_windows, eng._last_visible = (1 << 18,) * 2, (0, 0)
+            eng._cached_pool_ws = (1 << 18,) * 4 if pooled else None
+
+        def undo():
+            for a, v in saved.items():
+                setattr(eng, a, v)
+        return action, undo
+
+    def tile(on):
+        return lambda: setattr(eng, "cfg", dataclasses.replace(
+            eng.cfg, use_tile_raster=on))
+
+    def rebuild():
+        eng._draw_pool, eng._pool_key = None, None
+
+    out = [("window change", *windows()),
+           ("EDL off", *setting("enable_edl", False)),
+           ("HQS off", *setting("use_high_quality_shading", False)),
+           ("boxes on", *setting("show_bounding_box", True)),
+           ("colour by node", *setting("color_by_node", True)),
+           ("colour by LOD", *setting("color_by_lod", True)),
+           ("white", *setting("color_white", True)),
+           ("tile route", tile(True), tile(False)),
+           ("compaction", lambda: eng._maybe_compact(force=True),
+            lambda: None)]
+    if pooled:
+        out.append(("pool rebuild", rebuild, lambda: None))
+    return out
 
 
 # the fixtures of tests/test_sharded_engine.py and test_sharded_outofcore.py;
@@ -2184,6 +2713,14 @@ def main(argv=None) -> int:
         # --- phase 4b: the helpers on this state and frame ---
         phase_helpers(eng.cfg, eng.state, eng.uniforms(W, H),
                       eng.last_windows, card)
+
+        # --- phase 4c: Engine.render's CUDA graphs on this state ---
+        coop_answer = coop_capture_answer(cdev, card)
+        GRAPHS["cooperative capture"] = coop_answer
+        eng.render(W, H)
+        COOP_GRAPH.update(coop_kernels_in_graph(eng, card))
+        phase_graphs(eng, "bulk exact", card, graph_toggles(eng, False),
+                     tile_memory=True)
         eng.stream.stop()
         del eng, img, stats
         gc.collect()
@@ -2278,6 +2815,13 @@ def main(argv=None) -> int:
                 f"{post[0.0][0]:.2f} ms, truncated {post[0.0][1]}, windows "
                 f"{eng.last_windows[:2]} (visible points {post[0.0][2]}, "
                 f"voxels {post[0.0][3]}); card: {card}")
+
+        # --- phase 7b: the CUDA graphs of the post-load frames ---
+        for budget, what in ((1.0, "post-load pooled"),
+                             (0.0, "post-load exact")):
+            eng.settings.point_budget = budget
+            eng.render(W, H)
+            phase_graphs(eng, what, card, graph_toggles(eng, budget > 0))
 
         # --- phase 8: kernel against plain version on the pooled stream ---
         eng.settings.point_budget = 1.0
@@ -2579,6 +3123,7 @@ def main(argv=None) -> int:
         # --- phase 17: the app and the viewer on the card ---
         phase_app_viewer(tmp, path, dirs["las"], n, dev, card, launches)
 
+    say("CUDA graphs of Engine.render: " + json.dumps(GRAPHS))
     say("frame median ms, splat route vs tile route, interleaved: " + json.dumps(
         {k: [round(v[0], 2), round(v[1], 2)] for k, v in route_ms.items()}))
     ex, sx = rows[("exact", True)], srows[("exact", True)]

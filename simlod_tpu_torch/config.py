@@ -3,7 +3,8 @@
   - EngineConfig : capacities and step sizing (same fields and defaults as the
                    JAX package, so one config means the same octree in both)
   - Settings     : interactive render/LOD knobs (mirrors the reference `settings`)
-  - Uniforms     : per-frame values as tensors on the device, with the
+  - Uniforms     : per-frame values as tensors on the device (views of one
+                   buffer; UniformBuffer keeps one per engine), with the
                    switches (RenderFlags) and the visibility kernel's
                    values (UniformsHost) also as host values
   - Stats        : engine counters (mirrors HostDeviceInterface.h:46-71)
@@ -198,21 +199,63 @@ class RenderFlags:
 
 @dataclasses.dataclass(frozen=True)
 class UniformsHost:
-    """Host copies of the per-frame values the visibility kernel takes by
-    value (render/visibility.py): the same float32 values as the device
-    tensors, so a kernel launch reads nothing back."""
+    """Host copies of values the frame also reads on the device: the same
+    float32 values as the device tensors, kept so that a check reads
+    nothing back."""
 
     planes: tuple                   # 24 floats: the frustum planes [6, 4]
-    # the visibility kernel's 44 float32 arguments (transform_update_bound,
-    # planes, width, height, min_node_size, point_budget), packed once
+    # the visibility kernel's 44 float32 values (transform_update_bound,
+    # planes, width, height, min_node_size, point_budget), as the kernel
+    # reads them from Uniforms.vis
     vis_floats: bytes
+
+
+# The uniform buffer's layout: 38 float32 (6 scalars, the two matrices), the
+# visibility kernel's 44 float32 (Uniforms.vis), point_size, 7 switches
+_VIS = slice(152, 328)
+_POINT_SIZE = slice(328, 332)
+_SWITCHES = slice(332, 339)
+UNIFORM_BYTES = 339
+
+
+def _pack_uniforms(width: int, height: int, transform, transform_update_bound,
+                   s: "Settings"):
+    """One frame's uniform bytes (the buffer's layout above), its host
+    flags and its host copies."""
+    if transform_update_bound is None:
+        transform_update_bound = transform
+    t = np.asarray(torch.as_tensor(transform, dtype=torch.float32))
+    tub = np.asarray(torch.as_tensor(transform_update_bound,
+                                     dtype=torch.float32))
+    floats = np.concatenate([np.array(
+        [width, height, s.lod, s.min_node_size, s.edl_strength,
+         s.point_budget], np.float32), t.reshape(16), tub.reshape(16)])
+    planes = frustum_planes_host(tub).reshape(24)
+    vis = np.concatenate([floats[22:38], planes,
+                          floats[[0, 1, 3, 5]]]).astype(np.float32)
+    switches = (s.show_bounding_box, s.show_points, s.color_by_node,
+                s.color_by_lod, s.color_white, s.use_high_quality_shading,
+                s.enable_edl)
+    raw = floats.tobytes() + vis.tobytes() \
+        + np.array([s.point_size], np.int32).tobytes() \
+        + np.array(switches, np.bool_).tobytes()
+    flags = RenderFlags(
+        show_bounding_box=bool(s.show_bounding_box),
+        color_by_node=bool(s.color_by_node),
+        color_by_lod=bool(s.color_by_lod),
+        color_white=bool(s.color_white),
+        enable_edl=bool(s.enable_edl))
+    host = UniformsHost(planes=tuple(planes.tolist()),
+                        vis_floats=vis.tobytes())
+    return raw, flags, host
 
 
 @dataclasses.dataclass
 class Uniforms:
     """Per-frame values on the device (reference: HostDeviceInterface.h:10-44),
-    the switches among them again as host values (`flags`), and the values
-    the visibility kernel takes by value (`host`).
+    the switches among them again as host values (`flags`), and host copies
+    of what the kernels read (`host`). All tensors are views of one device
+    buffer, which a frame's values reach in one copy.
 
     Matrices are row-major [4,4] float32 acting on column vectors, exactly like the
     reference's `uniforms.transform * float4`."""
@@ -233,6 +276,8 @@ class Uniforms:
     enable_edl: torch.Tensor              # bool
     edl_strength: torch.Tensor            # f32
     point_budget: torch.Tensor            # f32
+    # [44] f32: what the visibility kernel reads (UniformsHost.vis_floats)
+    vis: torch.Tensor
     flags: RenderFlags                    # host copies of the switches above
     host: UniformsHost                    # host copies of the kernels' values
 
@@ -241,31 +286,22 @@ class Uniforms:
              settings: Settings | None = None, device=None) -> "Uniforms":
         """`transform` and `transform_update_bound` are host arrays (numpy or
         CPU tensors): their float32 values are kept on the host too. The
-        tensors go to `device`, the card unless another is named."""
-        s = settings or Settings()
+        tensors go to `device`, the card unless another is named, as views
+        of a buffer of their own."""
         device = resolve_device(device, "Uniforms.make")
-        if transform_update_bound is None:
-            transform_update_bound = transform
-        t = np.asarray(torch.as_tensor(transform, dtype=torch.float32))
-        tub = np.asarray(torch.as_tensor(transform_update_bound,
-                                         dtype=torch.float32))
-        # every value in one buffer, so that it reaches the device in one copy:
-        # 38 float32 (6 scalars, the two matrices), point_size, 7 switches
-        floats = np.concatenate([np.array(
-            [width, height, s.lod, s.min_node_size, s.edl_strength,
-             s.point_budget], np.float32), t.reshape(16), tub.reshape(16)])
-        switches = (s.show_bounding_box, s.show_points, s.color_by_node,
-                    s.color_by_lod, s.color_white, s.use_high_quality_shading,
-                    s.enable_edl)
-        raw = floats.tobytes() \
-            + np.array([s.point_size], np.int32).tobytes() \
-            + np.array(switches, np.bool_).tobytes()
+        raw, flags, host = _pack_uniforms(width, height, transform,
+                                          transform_update_bound,
+                                          settings or Settings())
         buf = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
-        planes = frustum_planes_host(tub).reshape(24)
-        vis_floats = np.concatenate([floats[22:38], planes,
-                                     floats[[0, 1, 3, 5]]])
+        return Uniforms.views(buf, flags, host)
+
+    @staticmethod
+    def views(buf: torch.Tensor, flags: RenderFlags,
+              host: UniformsHost) -> "Uniforms":
+        """The Uniforms over a uint8 buffer of UNIFORM_BYTES laid out as
+        `Uniforms.make` packs it."""
         f = buf[:152].view(torch.float32)
-        sw = buf[156:163].view(torch.bool)
+        sw = buf[_SWITCHES].view(torch.bool)
         return Uniforms(
             width=f[0], height=f[1],
             transform=f[6:22].view(4, 4),
@@ -274,18 +310,45 @@ class Uniforms:
             color_by_lod=sw[3], color_white=sw[4],
             use_high_quality_shading=sw[5],
             lod=f[2], min_node_size=f[3],
-            point_size=buf[152:156].view(torch.int32)[0],
+            point_size=buf[_POINT_SIZE].view(torch.int32)[0],
             enable_edl=sw[6], edl_strength=f[4], point_budget=f[5],
-            flags=RenderFlags(
-                show_bounding_box=bool(s.show_bounding_box),
-                color_by_node=bool(s.color_by_node),
-                color_by_lod=bool(s.color_by_lod),
-                color_white=bool(s.color_white),
-                enable_edl=bool(s.enable_edl)),
-            host=UniformsHost(
-                planes=tuple(planes.tolist()),
-                vis_floats=vis_floats.astype(np.float32).tobytes()),
-        )
+            vis=buf[_VIS].view(torch.float32), flags=flags, host=host)
+
+
+class UniformBuffer:
+    """One persistent uniform buffer on a device: every `write` copies a
+    frame's values into the same device bytes (one small host-to-device
+    copy, ordered on the current stream after the work that read the last
+    frame's) and returns Uniforms whose tensors are the same views each
+    time. A captured frame (render.FrameGraphs) reads its per-frame values
+    there, so a replay sees the frame's camera and settings. On the card
+    the copy leaves from pinned host memory without waiting for the device;
+    the next write waits for it before refilling those bytes."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device, "UniformBuffer")
+        cuda = self.device.type == "cuda"
+        self.buf = torch.zeros(UNIFORM_BYTES, dtype=torch.uint8,
+                               device=self.device)
+        self._staging = torch.zeros(UNIFORM_BYTES, dtype=torch.uint8,
+                                    pin_memory=cuda)
+        self._copied = torch.cuda.Event() if cuda else None
+        self._views = Uniforms.views(self.buf, RenderFlags(), None)
+
+    def write(self, width: int, height: int, transform,
+              transform_update_bound=None,
+              settings: Settings | None = None) -> Uniforms:
+        """This frame's Uniforms (Uniforms.make's values) in the buffer."""
+        raw, flags, host = _pack_uniforms(width, height, transform,
+                                          transform_update_bound,
+                                          settings or Settings())
+        if self._copied is not None:
+            self._copied.synchronize()     # the last copy has left
+        self._staging.numpy()[:] = np.frombuffer(raw, np.uint8)
+        self.buf.copy_(self._staging, non_blocking=self._copied is not None)
+        if self._copied is not None:
+            self._copied.record(torch.cuda.current_stream(self.device))
+        return dataclasses.replace(self._views, flags=flags, host=host)
 
 
 @dataclasses.dataclass

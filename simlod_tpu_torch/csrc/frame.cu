@@ -44,8 +44,12 @@
 // inside one; every launch reads its inputs once and writes its outputs once;
 // nothing in between goes to device memory except the plan's per-segment scan
 // (4 B a segment), its tile sums and visibility's partial rows; no launch needs
-// a host read; visibility's scalars come by value, EDL's strength is read
-// from the device.
+// a host read and none takes a per-frame value by value: visibility reads
+// the frame's camera and scalars from the device (Uniforms.vis), EDL its
+// strength, so that a frame captured as a CUDA graph (render.FrameGraphs)
+// reads each replay's values. A cudaLaunchCooperativeKernel launch
+// captures into a CUDA graph as it is and replays with its grid barriers
+// (H100, nvcc 12.9, torch 2.11 cu128: chip_smoke.py phase 4c).
 //
 // Bit-equality with the plain versions (torch on the card, one rounding per
 // op): every float op is an explicit __f*_rn intrinsic in torch's op order
@@ -128,11 +132,22 @@ struct VisArgs {
   bool* exact_p;
   bool* exact_v;
   int* partials;  // [gridDim.x, 5] scratch: each block's counts
+  // [44] on the device: the frame's VisUniforms (Uniforms.vis, filled by the
+  // frame's one uniform copy), so that a captured launch reads each replay's
+  // camera
+  const float* uniforms;
+  int n, draw_cap;
+};
+
+// The frame's values the kernel reads (config.Uniforms.vis, in this order);
+// each block copies them into shared memory once.
+struct VisUniforms {
   float m[16];       // transform_update_bound, row-major
   float planes[24];  // frustum.frustum_planes_host(m)
   float width, height, min_node_size, point_budget;
-  int n, draw_cap;
 };
+constexpr int VIS_UNIFORMS = 44;
+static_assert(sizeof(VisUniforms) == VIS_UNIFORMS * sizeof(float), "VisUniforms is 44 floats");
 
 struct Extent {
   float dx, dy;
@@ -141,7 +156,7 @@ struct Extent {
 
 // the node's box (visibility.py: box_min + size * n, + size) and the screen
 // extent of its 8 corners (min / max over the corners, NaN-propagating)
-__device__ Extent node_extent(const VisArgs& a, int i) {
+__device__ Extent node_extent(const VisArgs& a, const VisUniforms& u, int i) {
   Extent e;
   const float size = __fdiv_rn(*a.cube_size, exp2f(__int2float_rn(a.level[i])));
   const int q[3] = {a.nx[i], a.ny[i], a.nz[i]};
@@ -156,11 +171,11 @@ __device__ Extent node_extent(const VisArgs& a, int i) {
     const float px = (c >> 2) & 1 ? e.mx[0] : e.mn[0];
     const float py = (c >> 1) & 1 ? e.mx[1] : e.mn[1];
     const float pz = c & 1 ? e.mx[2] : e.mn[2];
-    const float n0 = dot4(a.m, px, py, pz);
-    const float n1 = dot4(a.m + 4, px, py, pz);
-    const float w = dot4(a.m + 12, px, py, pz);
-    const float sx = __fmul_rn(__fadd_rn(__fmul_rn(__fdiv_rn(n0, w), 0.5f), 0.5f), a.width);
-    const float sy = __fmul_rn(__fadd_rn(__fmul_rn(__fdiv_rn(n1, w), 0.5f), 0.5f), a.height);
+    const float n0 = dot4(u.m, px, py, pz);
+    const float n1 = dot4(u.m + 4, px, py, pz);
+    const float w = dot4(u.m + 12, px, py, pz);
+    const float sx = __fmul_rn(__fadd_rn(__fmul_rn(__fdiv_rn(n0, w), 0.5f), 0.5f), u.width);
+    const float sy = __fmul_rn(__fadd_rn(__fmul_rn(__fdiv_rn(n1, w), 0.5f), 0.5f), u.height);
     sminx = nan_min(sminx, sx);
     smaxx = nan_max(smaxx, sx);
     sminy = nan_min(sminy, sy);
@@ -171,18 +186,18 @@ __device__ Extent node_extent(const VisArgs& a, int i) {
   return e;
 }
 
-__device__ __forceinline__ bool large(const VisArgs& a, float dx, float dy) {
-  const float t = __fmul_rn(a.min_node_size, 2.0f);
+__device__ __forceinline__ bool large(const VisUniforms& u, float dx, float dy) {
+  const float t = __fmul_rn(u.min_node_size, 2.0f);
   return dx > t || dy > t;
 }
 
 // drawpool.node_budgets: ceil(point_budget * min(area, 2e9)) clamped to
 // [0, 2e9], NaN -> 0, as int32; INT32_MAX without decimation
-__device__ int node_budget(const VisArgs& a, float dx, float dy) {
-  if (!(a.point_budget > 0.0f)) return 0x7FFFFFFF;
+__device__ int node_budget(const VisUniforms& u, float dx, float dy) {
+  if (!(u.point_budget > 0.0f)) return 0x7FFFFFFF;
   const float area = __fmul_rn(nan_max(dx, 0.0f), nan_max(dy, 0.0f));
   const float c = area != area ? area : fminf(area, 2.0e9f);
-  float b = ceilf(__fmul_rn(a.point_budget, c));
+  float b = ceilf(__fmul_rn(u.point_budget, c));
   b = b != b ? b : fminf(fmaxf(b, 0.0f), 2.0e9f);
   return b != b ? 0 : __float2int_rz(b);
 }
@@ -190,6 +205,9 @@ __device__ int node_budget(const VisArgs& a, float dx, float dy) {
 // Launched cooperatively (grid <= co-resident blocks): every thread reaches
 // the grid barrier.
 __global__ void __launch_bounds__(THREADS) visibility(const __grid_constant__ VisArgs a) {
+  __shared__ VisUniforms u;
+  if (threadIdx.x < VIS_UNIFORMS) reinterpret_cast<float*>(&u)[threadIdx.x] = a.uniforms[threadIdx.x];
+  __syncthreads();
   const int num_nodes = *a.num_nodes;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
@@ -200,11 +218,11 @@ __global__ void __launch_bounds__(THREADS) visibility(const __grid_constant__ Vi
        t += stride) {
     const int i = static_cast<int>(t);
     const bool active = i < num_nodes;
-    const Extent e = node_extent(a, i);
+    const Extent e = node_extent(a, u, i);
     bool in_frustum = true;
 #pragma unroll
     for (int p = 0; p < 6; ++p) {
-      const float* pl = a.planes + 4 * p;
+      const float* pl = u.planes + 4 * p;
       const float px = pl[0] > 0.0f ? e.mx[0] : e.mn[0];
       const float py = pl[1] > 0.0f ? e.mx[1] : e.mn[1];
       const float pz = pl[2] > 0.0f ? e.mx[2] : e.mn[2];
@@ -216,15 +234,15 @@ __global__ void __launch_bounds__(THREADS) visibility(const __grid_constant__ Vi
     const int np = a.num_points[i], nv = a.num_voxels[i], cb = a.child_base[i];
     const bool has_samples = np > 0 || nv > 0 || cb >= 0;
     const bool vis = active && in_frustum && has_samples;
-    const bool il = active && large(a, e.dx, e.dy);
+    const bool il = active && large(u, e.dx, e.dy);
     // the parent's is_large, from its own box (parent clamped into the
     // directory, as visibility.py indexes it)
     const int par = a.parent[i];
     bool parent_large = false;
     if (par >= 0) {
       const int j = min(par, a.n - 1);
-      const Extent pe = node_extent(a, j);
-      parent_large = j < num_nodes && large(a, pe.dx, pe.dy);
+      const Extent pe = node_extent(a, u, j);
+      parent_large = j < num_nodes && large(u, pe.dx, pe.dy);
     }
     const bool leaf = cb < 0;
     const bool em = vis && ((parent_large && !il) || (il && leaf));
@@ -241,7 +259,7 @@ __global__ void __launch_bounds__(THREADS) visibility(const __grid_constant__ Vi
     c_points += leafish ? static_cast<unsigned>(np) : 0u;
     c_voxels += innerish ? static_cast<unsigned>(nv) : 0u;
     if (a.pool_pt_cnt) {  // draw pool: budgets, split masks, takes
-      const int budget = node_budget(a, e.dx, e.dy);
+      const int budget = node_budget(u, e.dx, e.dy);
       const int pc = a.pool_pt_cnt[i], vc = a.pool_vx_cnt[i];
       const bool poolable_p = np <= a.draw_cap && (pc > 0 || np == 0);
       const bool poolable_v = nv <= a.draw_cap && (vc > 0 || nv == 0);
@@ -703,10 +721,11 @@ extern "C" int simlod_last_grid(int kernel) {
 // visibility: `ptrs` is a host array of 24 device pointers in VisArgs' order
 // (without a pool the two pool counts and the four pool outputs are null;
 // partials holds blocks_for(n) rows of 5 ints, at least the grid),
-// `floats` a host array of 44 floats (m[16], planes[24], width, height,
-// min_node_size, point_budget: config.UniformsHost.vis_floats). One
-// cooperative launch of min(co-resident grid, blocks_for(n)) blocks.
-extern "C" int simlod_visibility(const void* ptrs, const void* floats, int n, int draw_cap,
+// `uniforms` a device array of 44 floats (VisUniforms: m[16], planes[24],
+// width, height, min_node_size, point_budget: config.Uniforms.vis). One
+// cooperative launch of min(co-resident grid, blocks_for(n)) blocks; it
+// takes no per-frame value by value.
+extern "C" int simlod_visibility(const void* ptrs, const void* uniforms, int n, int draw_cap,
                                  int device, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
@@ -718,7 +737,6 @@ extern "C" int simlod_visibility(const void* ptrs, const void* floats, int n, in
   note_grid(COOP_VISIBILITY, grid);
   VisArgs a{};
   const long long* p = static_cast<const long long*>(ptrs);
-  const float* f = static_cast<const float*>(floats);
   auto ptr = [&](int k) { return reinterpret_cast<void*>(p[k]); };
   a.nx = static_cast<const int*>(ptr(0));
   a.ny = static_cast<const int*>(ptr(1));
@@ -744,12 +762,7 @@ extern "C" int simlod_visibility(const void* ptrs, const void* floats, int n, in
   a.exact_p = static_cast<bool*>(ptr(21));
   a.exact_v = static_cast<bool*>(ptr(22));
   a.partials = static_cast<int*>(ptr(23));
-  for (int k = 0; k < 16; ++k) a.m[k] = f[k];
-  for (int k = 0; k < 24; ++k) a.planes[k] = f[16 + k];
-  a.width = f[40];
-  a.height = f[41];
-  a.min_node_size = f[42];
-  a.point_budget = f[43];
+  a.uniforms = static_cast<const float*>(uniforms);
   a.n = n;
   a.draw_cap = draw_cap;
   void* args[] = {&a};

@@ -22,7 +22,9 @@ Engine policies kept from the JAX package (and the reference):
 
 The JAX package's compile-storm workarounds (AOT preload, stream shape pins,
 the XLA cache, the per-state watermark cache) are not part of this port:
-PyTorch runs eagerly, and the state is updated in place.
+PyTorch runs eagerly, and the state is updated in place. Its jitted frame
+has a counterpart: on the card `render` replays a CUDA graph per static key
+(render.FrameGraphs).
 """
 from __future__ import annotations
 
@@ -32,14 +34,16 @@ import time
 import numpy as np
 import torch
 
-from .config import EngineConfig, Settings, Stats, Uniforms, resolve_device
+from .config import (EngineConfig, Settings, Stats, UniformBuffer, Uniforms,
+                     resolve_device)
 from .io.streaming import PointStream, scan_paths
 from .octree import build
 from .octree.structures import OctreeState, init_state
 from .ops import ragged
 from .render import camera as camera_mod
 from .render import drawpool as drawpool_mod
-from .render.render import (FrameStats, probe_pooled_counts, render_frame,
+from .render.render import (FrameGraphs, FrameStats, frame_key,
+                            probe_pooled_counts, render_frame,
                             render_frame_pooled)
 
 
@@ -93,6 +97,10 @@ def _collect_stats(cfg: EngineConfig, state: OctreeState,
     return _to_stats(dict(zip(vals, _stack(vals.values()).tolist())))
 
 
+# Stats' fields, in the order of _stat_tensors
+_STATS = tuple(f.name for f in dataclasses.fields(Stats))
+
+
 def _stack(tensors) -> torch.Tensor:
     """0-d device integers and bools in one int32 tensor (int64 where one
     is int64), so that one read fetches them all."""
@@ -114,6 +122,14 @@ def _marks_of(values: list) -> dict:
     m = dict(zip((k for k, _ in _MARKS), values))
     m["mem_cap"] = bool(m["mem_cap"])
     return m
+
+
+def _frame_stack(state: OctreeState, fstats: FrameStats) -> torch.Tensor:
+    """A frame's visible counts and truncation, the engine counters and the
+    watermarks in one tensor (_STATS, then _MARKS): what _after_frame reads
+    in one device read."""
+    return _stack([*_stat_tensors(state, fstats).values(),
+                   *(getattr(state, f) for _, f in _MARKS)])
 
 
 def _fused_step(cfg: EngineConfig, state: OctreeState, width: int, height: int,
@@ -224,6 +240,10 @@ class Engine:
         self.camera = camera_mod.Camera()
         self.orbit = camera_mod.OrbitControls()
         self._transform_update_bound = None
+        # render()'s per-frame values live here, and its frames as CUDA
+        # graphs (on the card)
+        self._uniform_buffer: UniformBuffer | None = None
+        self.graphs = FrameGraphs()
         self.reset_counters()
 
     def reset_counters(self):
@@ -259,6 +279,8 @@ class Engine:
             self.stream.stop()
         self.stream = None
         self._stream_iter = None
+        # no graph can replay on the new state: free their memory pools
+        self.graphs.clear()
         self.state = init_state(self.cfg, box_min, box_max, self.device)
         self.reset_counters()
         if self.settings.auto_focus_on_load:
@@ -292,9 +314,12 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     def _read(self, tensors) -> list:
-        """Device scalars -> Python numbers in one device read (counted)."""
+        """Device scalars (or one stacked tensor of them) -> Python numbers
+        in one device read (counted)."""
         self.host_syncs += 1
-        return _stack(tensors).tolist()
+        if not isinstance(tensors, torch.Tensor):
+            tensors = _stack(tensors)
+        return tensors.tolist()
 
     def _built(self, fn, *args):
         """fn(*args) (a builder call), adding its device reads to host_syncs."""
@@ -500,14 +525,28 @@ class Engine:
         self._pool_key = None
 
     # --- rendering ---
-    def uniforms(self, width: int, height: int) -> Uniforms:
+    def _transforms(self, width: int, height: int):
+        """The camera's transform and the frozen visibility transform."""
         self.camera.width, self.camera.height = width, height
         self.camera.fovy = self.settings.fovy
         t = self.camera.transform()
         if self.settings.do_update_visibility or self._transform_update_bound is None:
             self._transform_update_bound = t
-        return Uniforms.make(width, height, t, self._transform_update_bound,
+        return t, self._transform_update_bound
+
+    def uniforms(self, width: int, height: int) -> Uniforms:
+        """This frame's Uniforms in tensors of their own."""
+        return Uniforms.make(width, height, *self._transforms(width, height),
                              self.settings, device=self.device)
+
+    def _frame_uniforms(self, width: int, height: int) -> Uniforms:
+        """This frame's Uniforms in the engine's persistent uniform buffer
+        (one small copy to the device): the tensors a captured frame reads
+        keep their pointers from frame to frame."""
+        if self._uniform_buffer is None:
+            self._uniform_buffer = UniformBuffer(self.device)
+        return self._uniform_buffer.write(
+            width, height, *self._transforms(width, height), self.settings)
 
     def _windows(self):
         """Sample windows sized to the previous frame's visible counts, and
@@ -523,19 +562,18 @@ class Engine:
         self.last_windows = (pw, vw, nw, sw)
         return self.last_windows
 
-    def _after_frame(self, fstats: FrameStats):
-        """One device read after a frame: its visible counts and truncation,
-        the engine counters and the watermarks -> (Stats, watermarks); notes
-        what the next frame's windows are sized from."""
-        vals = _stat_tensors(self.state, fstats)
-        host = self._read([*vals.values(),
-                           *(getattr(self.state, f) for _, f in _MARKS)])
-        stats = _to_stats(dict(zip(vals, host)))
+    def _after_frame(self, stack: torch.Tensor):
+        """One device read after a frame, of its _frame_stack: its visible
+        counts and truncation, the engine counters and the watermarks ->
+        (Stats, watermarks); notes what the next frame's windows are sized
+        from."""
+        host = self._read(stack)
+        stats = _to_stats(dict(zip(_STATS, host)))
         self._last_visible = (stats.num_visible_points,
                               stats.num_visible_voxels)
         self._last_truncated = stats.render_truncated
         self._last_counts = (stats.num_nodes, stats.num_segments)
-        return stats, _marks_of(host[len(vals):])
+        return stats, _marks_of(host[len(_STATS):])
 
     def _stats(self, fstats: FrameStats | None) -> Stats:
         self.host_syncs += 1
@@ -629,26 +667,48 @@ class Engine:
         """Render-only frame -> (image i32 [H, W] (u32 abgr bits), Stats);
         through the draw pool when settings.point_budget > 0. Two device
         reads (the watermarks before, the counters after), more only after a
-        compaction, a pool rebuild or a window re-probe."""
+        compaction, a pool rebuild or a window re-probe.
+
+        On the card the frame's span (render_frame or render_frame_pooled,
+        then the Stats tensors) runs as a CUDA graph, captured on the first
+        frame of its key (render.frame_key) and replayed on every later one
+        (`self.graphs`); the image returned is a copy of the graph's. On the
+        CPU the span runs eagerly."""
         # an exact voxel CSR needs every tail append folded in
         m = self._marks()
         m = self._maybe_compact(force=m["vox_used"] > m["vox_compacted"],
                                 marks=m)
-        u = self.uniforms(width, height)
+        u = self._frame_uniforms(width, height)
         t0 = time.perf_counter()
+        cfg, state = self.cfg, self.state
         if self.settings.point_budget > 0:
             key_before = self._pool_key
             self._ensure_draw_pool(m)
             args = self._pooled_args(u, self._pool_key != key_before, m)
-            img, fstats = render_frame_pooled(self.cfg, self.state,
-                                              self._draw_pool, width, height,
-                                              u, *args)
+            pool = self._draw_pool
+
+            def span():
+                img, fstats = render_frame_pooled(cfg, state, pool, width,
+                                                  height, u, *args)
+                return img, _frame_stack(state, fstats)
         else:
-            img, fstats = render_frame(self.cfg, self.state, width, height, u,
-                                       *self._windows())
+            args = self._windows()
+            pool = None
+
+            def span():
+                img, fstats = render_frame(cfg, state, width, height, u,
+                                           *args)
+                return img, _frame_stack(state, fstats)
+        if self.device.type == "cuda":
+            img, stack = self.graphs.run(
+                frame_key(cfg, width, height, args, u, state, pool), span,
+                self.device)
+            img = img.clone()      # the next replay overwrites the graph's
+        else:
+            img, stack = span()
         self._sync()
         self.t_render.add(time.perf_counter() - t0)
-        stats, _ = self._after_frame(fstats)
+        stats, _ = self._after_frame(stack)
         self.frames += 1
         return img, stats
 
@@ -707,7 +767,7 @@ class Engine:
         dt = time.perf_counter() - t0
         self.t_fused.add(dt)
         self._adapt_budget(dt * 1e3, len(items))
-        stats, m = self._after_frame(fstats)
+        stats, m = self._after_frame(_frame_stack(self.state, fstats))
         # _maybe_compact hands the caller's watermarks back unless it
         # compacted
         changed = self._maybe_compact(marks=m) is not m

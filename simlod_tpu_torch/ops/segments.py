@@ -7,6 +7,8 @@ would make the host wait for the device to learn the output length.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 I32_MAX = torch.iinfo(torch.int32).max
@@ -15,6 +17,15 @@ I32_MIN = torch.iinfo(torch.int32).min
 
 def iota(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values, dtype, device) -> torch.Tensor:
+    """A constant tensor of `values` (a number or nested tuples), made once
+    per (values, dtype, device) and shared: callers must not write to it.
+    Making it is a host-to-device copy, which a CUDA graph cannot capture,
+    so a captured frame reads the one its warm-up made."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def cumsum32(x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,7 @@ import torch
 
 from ..config import EngineConfig, Uniforms
 from ..octree.structures import OctreeState
-from ..ops.segments import I32_MIN, expand_segments
+from ..ops.segments import I32_MIN, device_constant, expand_segments
 
 # 12 box edges as pairs of corner octants ((x<<2)|(y<<1)|z)
 _BOX_EDGES = (
@@ -27,6 +27,14 @@ _BOX_EDGES = (
 )
 BOX_COLOR = 0x000000FF   # the reference's box colour
 SCRATCH = 4096           # framebuffer slots for line samples that draw nothing
+# the frustum's 8 edges in NDC; the far quad sits at 0.99995 like the
+# reference's
+_FEND = 0.99995
+_FRUSTUM_SEGS = (
+    ((1, 1, -1.0), (1, 1, _FEND)), ((1, -1, -1.0), (1, -1, _FEND)),
+    ((-1, 1, -1.0), (-1, 1, _FEND)), ((-1, -1, -1.0), (-1, -1, _FEND)),
+    ((-1, -1, _FEND), (1, -1, _FEND)), ((-1, 1, _FEND), (1, 1, _FEND)),
+    ((-1, -1, _FEND), (-1, 1, _FEND)), ((1, -1, _FEND), (1, 1, _FEND)))
 
 
 def node_box_lines(state: OctreeState, emitted: torch.Tensor, max_lines: int):
@@ -63,23 +71,20 @@ def frustum_lines(uniforms: Uniforms):
     the GPU and in the JAX package (whose corners are float32 throughout)."""
     m = uniforms.transform_update_bound.double()
     minv = torch.linalg.inv_ex(m).inverse      # no error check: no host sync
-    fend = 0.99995
-    segs = [((1, 1, -1.0), (1, 1, fend)), ((1, -1, -1.0), (1, -1, fend)),
-            ((-1, 1, -1.0), (-1, 1, fend)), ((-1, -1, -1.0), (-1, -1, fend)),
-            ((-1, -1, fend), (1, -1, fend)), ((-1, 1, fend), (1, 1, fend)),
-            ((-1, -1, fend), (-1, 1, fend)), ((1, -1, fend), (1, 1, fend))]
 
     def unproject(pts):
-        ph = torch.tensor([[x, y, z, 1.0] for x, y, z in pts],
-                          dtype=torch.float64, device=m.device)
+        # the NDC corners are a device constant: a captured frame copies
+        # nothing from the host
+        ph = device_constant(tuple((x, y, z, 1.0) for x, y, z in pts),
+                             torch.float64, m.device)
         p = ph @ minv.T
         return (p[:, :3] / p[:, 3:4]).float()
 
-    a = unproject([s for s, _ in segs])
-    b = unproject([e for _, e in segs])
-    color = torch.full((len(segs),), BOX_COLOR, dtype=torch.int32,
-                       device=m.device)
-    valid = torch.ones((len(segs),), dtype=torch.bool, device=m.device)
+    a = unproject([s for s, _ in _FRUSTUM_SEGS])
+    b = unproject([e for _, e in _FRUSTUM_SEGS])
+    n = len(_FRUSTUM_SEGS)
+    color = torch.full((n,), BOX_COLOR, dtype=torch.int32, device=m.device)
+    valid = torch.ones((n,), dtype=torch.bool, device=m.device)
     return a, b, color, valid
 
 

@@ -32,7 +32,7 @@ from .. import kernels
 from ..config import EngineConfig, Uniforms
 from ..octree.structures import OctreeState
 from ..ops import morton, ragged
-from ..ops.segments import I32_MIN
+from ..ops.segments import I32_MIN, device_constant
 
 
 def u32(v: int) -> int:
@@ -195,7 +195,7 @@ def _lod_color(level: torch.Tensor) -> torch.Tensor:
     """Spectral LOD palette (reference render.cu:49-59)."""
     idx = torch.clamp(((8.0 - level.to(torch.float32)) * 1.8).to(torch.int32),
                       0, 7)
-    pal = torch.tensor(C.SPECTRAL, dtype=torch.int32, device=level.device)
+    pal = device_constant(C.SPECTRAL, torch.int32, level.device)
     return pal[idx.long()]
 
 

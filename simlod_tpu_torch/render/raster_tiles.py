@@ -28,7 +28,7 @@ import torch
 from .. import constants as C
 from .. import kernels
 from ..config import EngineConfig, Uniforms
-from ..ops.segments import I32_MIN, take_last
+from ..ops.segments import I32_MIN, device_constant, take_last
 from . import raster
 
 TILE = 512           # framebuffer pixels per tile (the kernel's block)
@@ -63,13 +63,12 @@ def pack_samples(cfg: EngineConfig, uniforms: Uniforms, width: int, height: int,
 
     valid = spix < npad
     win = spix != torch.roll(spix, 1, 0)
-    win[0] = True
+    win[:1].fill_(True)     # a fill: a captured frame copies nothing in
     win = win & valid
     wdb = take_last(torch.where(win, sdb, I32_MIN), sentinel=I32_MIN)
     wd = wdb.view(torch.float32)
     depth = sdb.view(torch.float32)
-    accept = valid & (depth < wd * torch.tensor(1.01, dtype=torch.float32,
-                                                device=dev))
+    accept = valid & (depth < wd * device_constant(1.01, torch.float32, dev))
     am = torch.where(uniforms.use_high_quality_shading, accept, win)
     f0 = spix | (win.to(torch.int32) << WIN_BIT) | (am.to(torch.int32) << AM_BIT)
 

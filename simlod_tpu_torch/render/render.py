@@ -7,10 +7,18 @@ separately (out-of-core bricks) before one EDL pass.
 
 The JAX package scans K frames in one program (render_frames*); here that is a
 Python loop.
+
+The JAX package jits render_frame and render_frame_pooled on their static
+arguments (simlod_tpu/render/render.py:139-142, 237-242). Their counterpart
+here is `FrameGraphs`: a frame's span captured once per static key as a CUDA
+graph and replayed as one unit. The functions below stay the un-jitted
+bodies: the CPU path, and what a graph captures.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -244,6 +252,141 @@ def render_frames_pooled(cfg: EngineConfig, state: OctreeState,
     return _frames(lambda u: render_frame_pooled(
         cfg, state, pool, width, height, u, pool_pw, pool_vw, exact_pw,
         exact_vw, node_window, seg_window), uniforms_seq)
+
+
+def _launch_counters() -> tuple:
+    """The kernel wrappers whose `.launches` count their launches, looked up
+    when a graph is captured (a caller's replacement wrapper is counted)."""
+    return (raster.splat_samples, raster.splat_resolve,
+            raster_tiles.tile_resolve, visibility.compute_visibility_cuda,
+            ragged.plan_blocks_cuda, raster.edl_cuda)
+
+
+class CapturedFrame(NamedTuple):
+    """A frame's span captured as one CUDA graph: `outputs` are the graph's
+    own tensors, which each replay overwrites; `launches` the kernel launches
+    the capture recorded, per wrapper."""
+    graph: object
+    outputs: object
+    launches: tuple              # ((wrapper, launches a replay makes), ...)
+
+    def replay(self) -> None:
+        """Run the graph on the card; each wrapper counts the launches its
+        kernel makes in it."""
+        self.graph.replay()
+        for fn, n in self.launches:
+            fn.launches += n
+
+
+def capture_cuda_graph(span, device) -> CapturedFrame:
+    """Capture `span()` (a function of no arguments that launches a frame's
+    work on the current stream and returns its tensors) on CUDA `device`.
+
+    First use happens outside the capture: one eager run of the span on a
+    side stream, as torch.cuda.graph asks, builds the kernel library, asks
+    for the cooperative grids and makes the device constants. The capture
+    runs on a stream of its own in thread-local mode (the stream's loader
+    threads may copy meanwhile) and takes a private memory pool. A capture
+    launches nothing, so the wrappers' counts are set back to what they
+    were; a replay adds them. An error raises: nothing runs the eager span
+    in the graph's place."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            span()
+            fns = _launch_counters()
+            before = [f.launches for f in fns]
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outputs = span()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass        # the span's own error is the one to raise
+                raise
+            else:
+                graph.capture_end()
+            finally:
+                made = [f.launches - b for f, b in zip(fns, before)]
+                for f, b in zip(fns, before):
+                    f.launches = b
+        torch.cuda.current_stream().wait_stream(side)
+    return CapturedFrame(graph, outputs,
+                         tuple((f, n) for f, n in zip(fns, made) if n))
+
+
+def _tensor_key(obj) -> tuple:
+    """(pointer, shape) of every tensor field of a dataclass or NamedTuple:
+    a graph reads each tensor where it lay at capture, so a replaced tensor
+    (a compaction, a pool rebuild, a new state) changes the key."""
+    if obj is None:
+        return ()
+    vals = obj if isinstance(obj, tuple) else vars(obj).values()
+    return tuple((t.data_ptr(), t.shape) for t in vals
+                 if isinstance(t, torch.Tensor))
+
+
+def frame_key(cfg: EngineConfig, width: int, height: int, windows,
+              uniforms: Uniforms, state: OctreeState,
+              pool: drawpool.DrawPool | None = None) -> tuple:
+    """The static key of a frame's graph: the JAX package's static
+    arguments (cfg, which holds use_tile_raster, width, height and the
+    windows: the exact frame's four or the pooled frame's six), the host
+    switches that change the launch sequence (uniforms.flags), exact or
+    pooled, and what a graph freezes: the pointer and shape of every state,
+    pool and uniform tensor."""
+    return (cfg, width, height, tuple(windows), uniforms.flags,
+            pool is not None, _tensor_key(state), _tensor_key(pool),
+            _tensor_key(uniforms))
+
+
+class FrameGraphs:
+    """Frames captured as CUDA graphs, one per static key (frame_key), in a
+    small LRU: the port's counterpart of the JAX package's jax.jit cache of
+    render_frame and render_frame_pooled. `run(key, span, device)` captures
+    the span the first time its key is seen and replays the graph on every
+    later call with that key; the returned tensors belong to the graph and
+    the next replay overwrites them. Each graph holds its memory pool until
+    the LRU evicts it or the cache is dropped. `capture(span, device)` makes
+    a graph (capture_cuda_graph; tests inject another)."""
+
+    def __init__(self, size: int = 4, capture=capture_cuda_graph):
+        self.size = size
+        self.capture = capture
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.replays = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def run(self, key, span, device):
+        graph = self._graphs.get(key)
+        if graph is None:
+            t0 = time.perf_counter()
+            graph = self.capture(span, device)
+            self.capture_seconds += time.perf_counter() - t0
+            self.captures += 1
+            self._graphs[key] = graph
+            if len(self._graphs) > self.size:
+                self._graphs.popitem(last=False)
+        else:
+            self._graphs.move_to_end(key)
+        graph.replay()
+        self.replays += 1
+        return graph.outputs
+
+    def latest(self) -> CapturedFrame:
+        """The graph that ran last."""
+        return next(reversed(self._graphs.values()))
+
+    def clear(self) -> None:
+        """Drop every graph (and its memory pool)."""
+        self._graphs.clear()
 
 
 def probe_pooled_counts(cfg: EngineConfig, state: OctreeState,

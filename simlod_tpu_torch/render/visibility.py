@@ -157,9 +157,11 @@ def compute_visibility_cuda(state: OctreeState, uniforms: Uniforms,
     side is one check per column, a torch.empty per output and one for the
     partial rows (chip_smoke's host_breakdown times an arena against them:
     no clear gain), and one ctypes call. The frame's scalars and frustum
-    planes come by value, packed once per frame by Uniforms.make
-    (UniformsHost.vis_floats), num_nodes through a pointer: no host read.
-    Each call adds one to `compute_visibility_cuda.launches`."""
+    planes are read on the device (`uniforms.vis`, 44 floats that the
+    frame's one uniform copy fills), num_nodes through a pointer: no host
+    read and no per-frame value by value, so that a captured launch reads
+    each replay's camera. Each call adds one to
+    `compute_visibility_cuda.launches`."""
     dev = state.child_base.device
     n = state.child_base.shape[0]
     i32, f32 = torch.int32, torch.float32
@@ -194,8 +196,10 @@ def compute_visibility_cuda(state: OctreeState, uniforms: Uniforms,
     partials = torch.empty(5 * min(-(-n // 256), 4096), dtype=i32, device=dev)
     ptrs += [t.data_ptr() for t in (*out, counts)] \
         + ([t.data_ptr() for t in extra] or [0] * 4) + [partials.data_ptr()]
+    vis = kernels.data_ptr(uniforms.vis, where, "uniforms.vis", f32, dev,
+                           (44,))
     rc = kernels.load().simlod_visibility(
-        kernels.words(ptrs), uniforms.host.vis_floats, n,
+        kernels.words(ptrs), vis, n,
         cfg.draw_cap if cfg is not None else 0, dev.index, kernels.stream(dev))
     kernels.check_launch(rc, where)
     compute_visibility_cuda.launches += 1
