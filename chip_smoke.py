@@ -1607,6 +1607,23 @@ def graph_equals_eager(eng, what: str) -> float:
     return coverage(img, C)
 
 
+def settle(eng):
+    """Still frames until the windows have held for WINDOW_SHRINK_FRAMES + 1
+    frames in a row: a still camera's windows then hold for good (the exact
+    frame's held_window shrinks only after that many frames under half, the
+    pooled frame re-probes every 8)."""
+    from simlod_tpu_torch.engine import WINDOW_SHRINK_FRAMES
+    ws, same = None, 0
+    for _ in range(8 * (WINDOW_SHRINK_FRAMES + 1)):
+        eng.render(W, H)
+        now = eng.last_pooled_windows if eng.settings.point_budget > 0 \
+            else eng.last_windows
+        same, ws = (same + 1 if now == ws else 0), now
+        if same >= WINDOW_SHRINK_FRAMES + 1:
+            return
+    check(False, f"the windows of a still camera did not settle: {ws}")
+
+
 def coop_capture_answer(dev, card: str) -> str:
     """Whether a cudaLaunchCooperativeKernel launch (the way visibility and
     plan_many launch) captures into a CUDA graph and replays: the empty
@@ -1801,12 +1818,14 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
     """Engine.render's CUDA graphs on eng's state (phases 4c and 7b):
     graph frames bit-equal to the eager frame of the same key over `orbit`
     cameras around the current view and across `toggles` ((name, action,
-    undo): a Settings switch, the tile route, a window change, a
+    undo, new key): a Settings switch, the tile route, a window change, a
     compaction, a pool rebuild), each of which must capture again where it
-    changes the key; the launch counters count replays; the capture count
-    and ms; the memory a graph holds and the peak with and without graphs
-    (graph_memory; the tile route's too, with tile_memory); per-frame device ms (the graph replayed against the eager span, both
-    back to back: queued_ms) and host µs to issue it (host_us);
+    changes the key and must not where it does not; the launch counters
+    count replays; the capture count and ms; the memory a graph holds and
+    the peak with and without graphs (graph_memory; the tile route's too,
+    with tile_memory); per-frame device ms (the graph replayed against the
+    eager span, both back to back: queued_ms) and host µs to issue it
+    (host_us);
     Engine.render's wall ms with the graph against the same call without
     (EagerFrames), interleaved as route_pair does. Fills GRAPHS[what]."""
     import numpy as np
@@ -1832,9 +1851,11 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
     eng.camera.world = eng.orbit.world()
     orbit_captures = graphs.captures - captures0
     check(min(drawn) > 0, f"graph frames, {what}: a frame drew nothing")
-    # the switches: each frame bit-equal, a changed key captured again
+    # the switches: each frame bit-equal; a switch that changes the key
+    # captures again, one read on the device (HQS) replays the same graph
     recaptured = {}
-    for name, action, undo in toggles:
+    for name, action, undo, new_key in toggles:
+        settle(eng)
         graph_equals_eager(eng, f"{what}, before {name}")
         c = graphs.captures
         action()
@@ -1842,16 +1863,18 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
         graph_equals_eager(eng, f"{what}, {name}, replayed")
         recaptured[name] = graphs.captures - c
         undo()
+        check(recaptured[name] >= 1 if new_key else recaptured[name] == 0,
+              f"graph frames, {what}: {name} made {recaptured[name]} "
+              f"captures ({'a new key' if new_key else 'the same key'})")
     say(f"graph frames, {what}: {orbit} orbit cameras (+0.1 rad each) "
         f"bit-equal to the eager frames of their keys ({orbit_captures} "
-        f"captures: the windows follow the visible counts); the switches "
+        f"captures: held windows); the switches "
         f"bit-equal too, captures each {json.dumps(recaptured)}; card: "
         f"{card}")
     row["orbit_frames"], row["orbit_captures"] = orbit, orbit_captures
     row["switch_captures"] = recaptured
     # the launch counters count replays (the windows settle first)
-    for _ in range(4):
-        eng.render(W, H)
+    settle(eng)
     counted = {**frame_kernels()}
     from simlod_tpu_torch.render import raster
     counted["splat_samples"] = raster.splat_samples
@@ -1872,7 +1895,11 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
     # per-frame device ms and host µs: the graph's replay and the eager span
     # 8 frames a run: 20 eager frames of ~60 launches overfill the stream's
     # launch queue (~1,000 launches), and the host then waits on the device
-    latest = graphs.latest()
+    u = eng._frame_uniforms(W, H)
+    ws = eng.last_pooled_windows if eng.settings.point_budget > 0 \
+        else eng.last_windows
+    pool = eng._draw_pool if eng.settings.point_budget > 0 else None
+    latest = graphs._graphs[frame_key(eng.cfg, W, H, ws, u, eng.state, pool)]
     span = eager_span(eng)
     stats0 = torch.cuda.memory_stats()
     with uncounted():
@@ -1901,10 +1928,6 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
                     "num_device_free", "num_sync_all_streams")})
             + "; synchronizing ops of one eager span and one replay: "
             + json.dumps([str(w.message)[:300] for w in caught][:4]))
-    u = eng._frame_uniforms(W, H)
-    ws = eng.last_pooled_windows if eng.settings.point_budget > 0 \
-        else eng.last_windows
-    pool = eng._draw_pool if eng.settings.point_budget > 0 else None
     t0 = time.perf_counter()
     for _ in range(100):
         frame_key(eng.cfg, W, H, ws, u, eng.state, pool)
@@ -1980,8 +2003,9 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
 
 
 def graph_toggles(eng, pooled: bool) -> list:
-    """(name, action, undo) for each switch phase_graphs crosses: a window
-    change, EDL off, HQS off, boxes on, each colour mode, the tile route, a
+    """(name, action, undo, whether it changes the frame's key) for each
+    switch phase_graphs crosses: a window change, EDL off, HQS off (read on
+    the device: the same key), boxes on, each colour mode, the tile route, a
     compaction and, on a pooled frame, a pool rebuild."""
     st = eng.settings
 
@@ -1994,7 +2018,8 @@ def graph_toggles(eng, pooled: bool) -> list:
         saved = {}
 
         def action():
-            for a in ("_last_windows", "_last_visible", "_cached_pool_ws"):
+            for a in ("_last_windows", "_low_frames", "_last_visible",
+                      "_cached_pool_ws"):
                 saved[a] = getattr(eng, a, None)
             eng._last_windows, eng._last_visible = (1 << 18,) * 2, (0, 0)
             eng._cached_pool_ws = (1 << 18,) * 4 if pooled else None
@@ -2011,18 +2036,18 @@ def graph_toggles(eng, pooled: bool) -> list:
     def rebuild():
         eng._draw_pool, eng._pool_key = None, None
 
-    out = [("window change", *windows()),
-           ("EDL off", *setting("enable_edl", False)),
-           ("HQS off", *setting("use_high_quality_shading", False)),
-           ("boxes on", *setting("show_bounding_box", True)),
-           ("colour by node", *setting("color_by_node", True)),
-           ("colour by LOD", *setting("color_by_lod", True)),
-           ("white", *setting("color_white", True)),
-           ("tile route", tile(True), tile(False)),
+    out = [("window change", *windows(), True),
+           ("EDL off", *setting("enable_edl", False), True),
+           ("HQS off", *setting("use_high_quality_shading", False), False),
+           ("boxes on", *setting("show_bounding_box", True), True),
+           ("colour by node", *setting("color_by_node", True), True),
+           ("colour by LOD", *setting("color_by_lod", True), True),
+           ("white", *setting("color_white", True), True),
+           ("tile route", tile(True), tile(False), True),
            ("compaction", lambda: eng._maybe_compact(force=True),
-            lambda: None)]
+            lambda: None, True)]
     if pooled:
-        out.append(("pool rebuild", rebuild, lambda: None))
+        out.append(("pool rebuild", rebuild, lambda: None, True))
     return out
 
 

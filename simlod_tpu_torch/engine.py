@@ -215,6 +215,30 @@ def sample_window(n: int, prev: int, cap: int) -> int:
     return min(((n + (1 << b) - 1) >> b) << b, cap)
 
 
+# frames the need of an exact frame's sample window stays within half of it
+# before the window shrinks (held_window)
+WINDOW_SHRINK_FRAMES = 8
+
+
+def held_window(n: int, prev: int, low: int, cap: int) -> tuple[int, int]:
+    """Sample window of an exact frame, held so that a moving camera keeps
+    its frame's graph key (the windows are part of it): a power of two (or
+    the cap) no smaller than the JAX package's sample_window(n, prev, cap).
+    It grows at once to the power of two above the need, and shrinks to the
+    power of two below it only once the need has stayed within half of it for
+    WINDOW_SHRINK_FRAMES frames in a row. `low` counts those frames so far.
+    Returns (window, low)."""
+    prev = min(prev, cap)
+    need = sample_window(n, 0, cap)
+    if need > prev:
+        return min(1 << (need - 1).bit_length(), cap), 0
+    if 2 * need > prev:
+        return prev, 0
+    if low + 1 < WINDOW_SHRINK_FRAMES:
+        return prev, low + 1
+    return 1 << ((prev - 1).bit_length() - 1), 0
+
+
 def directory_window(n: int, cap: int) -> int:
     """Pow2 directory window from a live watermark (2x headroom)."""
     n = max(2 * n + 64, 4096)
@@ -549,13 +573,14 @@ class Engine:
             width, height, *self._transforms(width, height), self.settings)
 
     def _windows(self):
-        """Sample windows sized to the previous frame's visible counts, and
-        directory windows from the live watermarks."""
+        """Sample windows held from the previous frames' visible counts
+        (held_window), and directory windows from the live watermarks."""
         pv, vv = getattr(self, "_last_visible", (1 << 20, 1 << 20))
         ppw, pvw = getattr(self, "_last_windows", (1 << 20, 1 << 20))
-        pw = sample_window(pv, ppw, self.cfg.max_render_points)
-        vw = sample_window(vv, pvw, self.cfg.max_render_voxels)
-        self._last_windows = (pw, vw)
+        lp, lv = getattr(self, "_low_frames", (0, 0))
+        pw, lp = held_window(pv, ppw, lp, self.cfg.max_render_points)
+        vw, lv = held_window(vv, pvw, lv, self.cfg.max_render_voxels)
+        self._last_windows, self._low_frames = (pw, vw), (lp, lv)
         nn, ns = getattr(self, "_last_counts", (0, 0))
         nw = directory_window(nn, self.cfg.node_capacity)
         sw = directory_window(ns, self.cfg.segment_capacity)

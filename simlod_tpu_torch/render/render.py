@@ -343,18 +343,21 @@ def frame_key(cfg: EngineConfig, width: int, height: int, windows,
             _tensor_key(uniforms))
 
 
-class FrameGraphs:
-    """Frames captured as CUDA graphs, one per static key (frame_key), in a
-    small LRU: the port's counterpart of the JAX package's jax.jit cache of
-    render_frame and render_frame_pooled. `run(key, span, device)` captures
-    the span the first time its key is seen and replays the graph on every
-    later call with that key; the returned tensors belong to the graph and
-    the next replay overwrites them. Each graph holds its memory pool until
-    the LRU evicts it or the cache is dropped. `capture(span, device)` makes
-    a graph (capture_cuda_graph; tests inject another)."""
+# graphs a FrameGraphs keeps (each with its memory pool) before it evicts
+MAX_GRAPHS = 4
 
-    def __init__(self, size: int = 4, capture=capture_cuda_graph):
-        self.size = size
+
+class FrameGraphs:
+    """Frames captured as CUDA graphs, one per static key (frame_key), in an
+    LRU of MAX_GRAPHS: the port's counterpart of the JAX package's jax.jit
+    cache of render_frame and render_frame_pooled. `run(key, span, device)`
+    captures the span the first time its key is seen and replays the graph
+    on every later call with that key; the returned tensors belong to the
+    graph and the next replay overwrites them. Each graph holds its memory
+    pool until the LRU evicts it or the cache is dropped. `capture(span,
+    device)` makes a graph (capture_cuda_graph; tests inject another)."""
+
+    def __init__(self, capture=capture_cuda_graph):
         self.capture = capture
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self.captures = 0
@@ -372,17 +375,13 @@ class FrameGraphs:
             self.capture_seconds += time.perf_counter() - t0
             self.captures += 1
             self._graphs[key] = graph
-            if len(self._graphs) > self.size:
+            if len(self._graphs) > MAX_GRAPHS:
                 self._graphs.popitem(last=False)
         else:
             self._graphs.move_to_end(key)
         graph.replay()
         self.replays += 1
         return graph.outputs
-
-    def latest(self) -> CapturedFrame:
-        """The graph that ran last."""
-        return next(reversed(self._graphs.values()))
 
     def clear(self) -> None:
         """Drop every graph (and its memory pool)."""

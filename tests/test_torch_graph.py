@@ -25,14 +25,16 @@ import torch
 
 from simlod_tpu_torch.config import (EngineConfig, RenderFlags, Settings,
                                      UniformBuffer, Uniforms)
-from simlod_tpu_torch.engine import _STATS, Engine, _frame_stack, _to_stats
+from simlod_tpu_torch.engine import (_STATS, WINDOW_SHRINK_FRAMES, Engine,
+                                     _frame_stack, _to_stats, held_window,
+                                     sample_window)
 from simlod_tpu_torch.formats import simlod, synthetic
 from simlod_tpu_torch.octree.structures import init_state
 from simlod_tpu_torch.render import drawpool, raster
 from simlod_tpu_torch.render.camera import Camera, OrbitControls
-from simlod_tpu_torch.render.render import (CapturedFrame, FrameGraphs,
-                                            frame_key, render_frame,
-                                            render_frame_pooled)
+from simlod_tpu_torch.render.render import (MAX_GRAPHS, CapturedFrame,
+                                            FrameGraphs, frame_key,
+                                            render_frame, render_frame_pooled)
 
 # six test processes share the machine in the tier-1 run; these small tensors
 # gain nothing from intra-op threads, which would oversubscribe the cores
@@ -166,17 +168,83 @@ def test_a_new_frame_keeps_its_key(small):
 
 def test_graph_cache_lru_evicts_the_least_recently_used():
     cap = FakeCapture()
-    graphs = FrameGraphs(size=2, capture=cap)
+    graphs = FrameGraphs(capture=cap)
     span = lambda: torch.zeros(1)
-    for key in ("a", "b", "a", "c"):      # "b" is the least recently used
+    keys = list(range(MAX_GRAPHS + 1))
+    # key 1 is the least recently used when the last key comes in
+    for key in keys[:-1] + [0, keys[-1]]:
         graphs.run(key, span, "cpu")
-    assert graphs.captures == 3 and len(graphs) == 2
-    graphs.run("a", span, "cpu")
-    assert graphs.captures == 3
-    graphs.run("b", span, "cpu")
-    assert graphs.captures == 4 and len(graphs) == 2
+    assert graphs.captures == MAX_GRAPHS + 1 and len(graphs) == MAX_GRAPHS
+    graphs.run(0, span, "cpu")
+    assert graphs.captures == MAX_GRAPHS + 1
+    graphs.run(1, span, "cpu")
+    assert graphs.captures == MAX_GRAPHS + 2 and len(graphs) == MAX_GRAPHS
     graphs.clear()
     assert len(graphs) == 0
+
+
+def _jax_windows(counts, cap):
+    """The JAX package's windows over a run of visible counts."""
+    from simlod_tpu.engine import sample_window as jax_window
+    w, out = 1 << 20, []
+    for n in counts:
+        w = jax_window(n, w, cap)
+        out.append(w)
+    return out
+
+
+def _held_windows(counts, cap):
+    w, low, out = 1 << 20, 0, []
+    for n in counts:
+        w, low = held_window(n, w, low, cap)
+        out.append(w)
+    return out
+
+
+@pytest.mark.parametrize("seed,cap", [(0, 1 << 22), (1, 1 << 22),
+                                      (2, 3 << 20), (3, 1 << 17)])
+def test_held_windows_never_fall_below_the_jax_windows(seed, cap):
+    """A held window is a power of two (or the cap) no smaller than the
+    JAX package's window after the same visible counts, so the port
+    truncates no frame that JAX draws whole: random walks, jumps and
+    drops of the visible counts."""
+    rng = np.random.default_rng(seed)
+    steps = np.exp(rng.normal(0.0, 0.3, 400))
+    steps[rng.random(400) < 0.05] *= 8.0            # jumps
+    steps[rng.random(400) < 0.05] /= 16.0           # drops
+    counts = np.clip(np.cumprod(steps) * 4e5, 0, 1 << 23).astype(int)
+    held, jax = _held_windows(counts, cap), _jax_windows(counts, cap)
+    assert all(h >= j for h, j in zip(held, jax))
+    assert all(h == cap or h & (h - 1) == 0 for h in held)
+    # the windows moved, unless the cap sits under the floor of 2^18 rows
+    assert len(set(held)) > 1 or set(held) == {cap} == set(jax)
+
+
+def test_held_windows_grow_at_once_and_shrink_late():
+    cap = 1 << 22
+    w, low = held_window(900_000, 1 << 20, 0, cap)
+    assert (w, low) == (1 << 21, 0)          # 1.25 x 900k > 2^20: grows
+    for k in range(WINDOW_SHRINK_FRAMES - 1):
+        w, low = held_window(300_000, w, low, cap)
+        assert (w, low) == (1 << 21, k + 1)  # needs 2^19: held
+    w, low = held_window(300_000, w, low, cap)
+    assert (w, low) == (1 << 20, 0)          # one octave down
+    w, low = held_window(700_000, w, low, cap)
+    assert (w, low) == (1 << 20, 0)          # within half again: the count resets
+    assert held_window(10, 1 << 18, 0, cap) == (1 << 18, 0)   # the floor
+    assert held_window(1 << 30, 1 << 20, 0, cap) == (cap, 0)  # the cap
+
+
+def test_held_windows_take_fewer_values_than_per_frame_windows():
+    """The visible counts of an orbit swing by a third around 10^6: the
+    JAX package's windows follow them bucket by bucket, the held windows
+    take two values, which the graph cache holds both of."""
+    t = np.arange(120)
+    counts = (1e6 * (1.0 + 0.33 * np.sin(2 * np.pi * t / 60))).astype(int)
+    changes = lambda ws: sum(a != b for a, b in zip(ws, ws[1:]))
+    held, jax = _held_windows(counts, 1 << 22), _jax_windows(counts, 1 << 22)
+    assert len(set(held)) == 2 <= MAX_GRAPHS < len(set(jax))
+    assert 2 * changes(held) < changes(jax)
 
 
 def test_a_capture_error_propagates():
@@ -324,6 +392,41 @@ def test_cpu_engine_render_builds_no_graph_and_matches_jax(cloud_file,
         teng.stream.stop()
 
 
+def test_cpu_engine_held_windows_draw_the_jax_frames(cloud_file):
+    """Over ten orbit frames the port's held windows stay at least the JAX
+    engine's (the first eight hold 2^20 rows while JAX's shrink) and the
+    images and Stats stay equal."""
+    from simlod_tpu.config import EngineConfig as JCfg, Settings as JSet
+    from simlod_tpu.engine import Engine as JEngine
+    kw = dict(min_node_size=8.0, enable_edl=False,
+              use_high_quality_shading=False)
+    big = {**KW, "max_render_points": 1 << 20, "max_render_voxels": 1 << 20}
+    jeng = JEngine(JCfg(**big), JSet(**kw))
+    teng = Engine(EngineConfig(**big), Settings(**kw), device="cpu")
+    for eng in (jeng, teng):
+        eng.open([cloud_file])
+        eng.load_all()
+    try:
+        seen = set()
+        for k in range(10):
+            for eng in (jeng, teng):
+                eng.orbit.yaw, eng.orbit.pitch = 0.3 * k, -0.5
+                eng.camera.world = eng.orbit.world()
+            jimg, jst = jeng.render(W, H)
+            timg, tst = teng.render(W, H)
+            np.testing.assert_array_equal(
+                np.asarray(jimg).view(np.uint32), timg.numpy().view(np.uint32))
+            for key in STAT_KEYS:
+                assert getattr(tst, key) == getattr(jst, key), key
+            assert all(t >= j for t, j in zip(teng._last_windows,
+                                               jeng._last_windows))
+            seen.add((tuple(teng._last_windows), tuple(jeng._last_windows)))
+        assert len({t for t, _ in seen}) < len({j for _, j in seen})
+    finally:
+        jeng.stream.stop()
+        teng.stream.stop()
+
+
 # --- on the card ---
 
 CARD_CFG = EngineConfig(**{**KW, "max_render_points": 1 << 20,
@@ -361,6 +464,20 @@ def _eager(eng):
     else:
         img, fs = render_frame(eng.cfg, eng.state, W, H, u, *eng.last_windows)
     return img, _frame_stack(eng.state, fs)
+
+
+def _settle(eng):
+    """Still frames until the windows have held for WINDOW_SHRINK_FRAMES + 1
+    frames in a row, after which a still camera's windows hold for good."""
+    ws, same = None, 0
+    for _ in range(8 * (WINDOW_SHRINK_FRAMES + 1)):
+        eng.render(W, H)
+        now = eng.last_pooled_windows if eng.settings.point_budget > 0 \
+            else eng.last_windows
+        same, ws = (same + 1 if now == ws else 0), now
+        if same >= WINDOW_SHRINK_FRAMES + 1:
+            return
+    raise AssertionError(f"the windows of a still camera did not settle: {ws}")
 
 
 def _held_to_eager(eng):
@@ -469,8 +586,7 @@ def test_launch_counters_count_replays(card, budget):
     eng = card
     eng.settings = Settings(min_node_size=8.0, point_budget=budget)
     _look(eng, 0.9)
-    eng.render(W, H)
-    eng.render(W, H)            # captured and replayed by now
+    _settle(eng)                # captured and replayed by now
     fns = (visibility.compute_visibility_cuda, ragged.plan_blocks_cuda,
            raster.edl_cuda, raster.splat_samples)
     before = [f.launches for f in fns]
