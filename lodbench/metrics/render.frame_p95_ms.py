@@ -1,0 +1,7 @@
+"""render.frame_p95_ms: the 95th percentile of the wall time of the
+window's Engine.render calls."""
+from lodbench import arith
+
+
+def read(rec):
+    return 1e3 * arith.p95(rec["window"]["frame_s"])
