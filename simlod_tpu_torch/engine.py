@@ -45,6 +45,7 @@ from .render import drawpool as drawpool_mod
 from .render.render import (FrameGraphs, FrameStats, frame_key,
                             probe_pooled_counts, render_frame,
                             render_frame_pooled)
+from .utils import trace
 
 
 def _stat_tensors(state: OctreeState, fstats: FrameStats | None) -> dict:
@@ -88,13 +89,6 @@ def _to_stats(values: dict) -> Stats:
     for k in ("mem_capacity_reached", "render_truncated"):
         out[k] = bool(out[k])
     return Stats(**out)
-
-
-def _collect_stats(cfg: EngineConfig, state: OctreeState,
-                   fstats: FrameStats | None) -> Stats:
-    """Engine counters as Python values (one device read for all of them)."""
-    vals = _stat_tensors(state, fstats)
-    return _to_stats(dict(zip(vals, _stack(vals.values()).tolist())))
 
 
 # Stats' fields, in the order of _stat_tensors
@@ -172,31 +166,6 @@ def _pool_need(state: OctreeState, cap: int) -> torch.Tensor:
     """Drawn-sample upper bounds [points, voxels] for the draw-pool copy."""
     return torch.stack([torch.clamp(state.num_points, max=cap).sum(),
                         torch.clamp(state.num_voxels, max=cap).sum()])
-
-
-@dataclasses.dataclass
-class Timings:
-    """min/max/avg accumulator (reference benchmark mode, :234-246)."""
-
-    count: int = 0
-    total: float = 0.0
-    min: float = float("inf")
-    max: float = 0.0
-
-    def add(self, dt: float):
-        self.count += 1
-        self.total += dt
-        self.min = min(self.min, dt)
-        self.max = max(self.max, dt)
-
-    @property
-    def avg(self) -> float:
-        return self.total / self.count if self.count else 0.0
-
-    def row(self) -> dict:
-        return dict(count=self.count, avg_ms=self.avg * 1e3,
-                    min_ms=self.min * 1e3 if self.count else 0.0,
-                    max_ms=self.max * 1e3)
 
 
 def _size_bucket(n: int) -> int:
@@ -290,10 +259,10 @@ class Engine:
         self.steps = 0
         self.frames = 0
         self.host_syncs = 0
-        self.t_build = Timings()
-        self.t_render = Timings()
-        self.t_fused = Timings()
-        self.t_pool = Timings()
+        self.t_build = trace.Timings()
+        self.t_render = trace.Timings()
+        self.t_fused = trace.Timings()
+        self.t_pool = trace.Timings()
 
     # --- lifecycle (reference reset()/reload(), :644-809) ---
     def reset(self, box_min, box_max):
@@ -318,47 +287,52 @@ class Engine:
         box_override = (min, max): an out-of-core brick's world box), start
         streaming. chunk_steps overrides cfg.steps_per_dispatch for this
         stream only (frame-loop pacing: steps per streamed item)."""
-        if self._auto_cfg:
-            total = sum(e.num_points for e in scan_paths(paths))
-            self.cfg = EngineConfig.auto(total_points=total, device=self.device)
-        stream = PointStream(
-            paths, self.cfg.step_points, device=self.device,
-            chunk_steps=chunk_steps if chunk_steps is not None
-            else self.cfg.steps_per_dispatch, box_override=box_override)
-        box = stream.box_max - stream.box_min
-        self.reset(np.zeros(3, np.float32), box.astype(np.float32))
-        self.stream = stream
-        self._stream_iter = iter(stream)
-        self._last_paths = list(paths)   # the viewer's "Reset + Benchmark"
-        return stream
+        with trace.span("engine.open"):
+            if self._auto_cfg:
+                with trace.span("open.config"):
+                    total = sum(e.num_points for e in scan_paths(paths))
+                    self.cfg = EngineConfig.auto(total_points=total,
+                                                 device=self.device)
+            with trace.span("open.stream"):
+                stream = PointStream(
+                    paths, self.cfg.step_points, device=self.device,
+                    chunk_steps=chunk_steps if chunk_steps is not None
+                    else self.cfg.steps_per_dispatch,
+                    box_override=box_override)
+            box = stream.box_max - stream.box_min
+            with trace.span("open.state"):
+                self.reset(np.zeros(3, np.float32), box.astype(np.float32))
+            self.stream = stream
+            self._stream_iter = iter(stream)
+            self._last_paths = list(paths)  # the viewer's "Reset + Benchmark"
+            return stream
 
     # --- construction ---
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _read(self, tensors) -> list:
+    def _read(self, site: str, tensors) -> list:
         """Device scalars (or one stacked tensor of them) -> Python numbers
-        in one device read (counted)."""
-        self.host_syncs += 1
+        in one device read at `site` (trace.sync, counted)."""
         if not isinstance(tensors, torch.Tensor):
             tensors = _stack(tensors)
-        return tensors.tolist()
+        return self._counted(trace.sync, site, tensors)
 
-    def _built(self, fn, *args):
-        """fn(*args) (a builder call), adding its device reads to host_syncs."""
-        syncs = build.host_syncs
+    def _counted(self, fn, *args):
+        """fn(*args), adding the device reads it makes to host_syncs."""
+        reads = trace.reads()
         try:
             return fn(*args)
         finally:
-            self.host_syncs += build.host_syncs - syncs
+            self.host_syncs += trace.reads() - reads
 
     def ingest(self, x, y, z, rgba, count: int, sync: bool = True) -> None:
         """One build step (build_step: no in-loop compaction); with sync the
         host-side compaction policy runs after and the device is waited on."""
         t0 = time.perf_counter()
-        self.state = self._built(build.build_step, self.cfg, self.state, x, y,
-                                 z, rgba, int(count))
+        self.state = self._counted(build.build_step, self.cfg, self.state, x,
+                                   y, z, rgba, int(count))
         self.steps += 1
         self._steps_since_poll += 1
         if sync:
@@ -371,8 +345,8 @@ class Engine:
         compacts at the watermark); sync as in `ingest`."""
         t0 = time.perf_counter()
         bx, by, bz, bc, counts = item
-        self.state = self._built(build.build_many, self.cfg, self.state, bx, by,
-                                 bz, bc, counts)
+        self.state = self._counted(build.build_many, self.cfg, self.state, bx,
+                                   by, bz, bc, counts)
         self.steps += bx.shape[0]
         self._steps_since_poll += bx.shape[0]
         if sync:
@@ -425,39 +399,42 @@ class Engine:
         `poll_every` items."""
         if self.stream is None:
             return
-        t0 = time.perf_counter()
-        if bulk is None:
-            bulk = (self._consumed_chunks == 0
-                    and self.stream.total_points <= self.cfg.point_capacity)
-        if bulk:
-            items = list(self._stream_iter)
-            self._consumed_chunks += len(items)
-            self.last_batch_finished = True
-            if items:
-                planes = [torch.cat([it[i] for it in items]) for i in range(4)]
-                counts = np.concatenate([it[4] for it in items])
-                del items
-                self.ingest_chunk((*planes, counts), sync=False)
-                del planes
-        else:
-            if poll_every is None:
-                poll_every = 1 if self.cfg.estimated_state_bytes() > (1 << 30) \
-                    else 4
-            chunks = 0
-            while (item := self._next_item()) is not None:
-                self._ingest_item(item, sync=False)
-                chunks += 1
-                if chunks % poll_every == 0:
-                    self._maybe_compact(poll=True)
-                    if self._capacity_flag:
-                        break
-            self.last_batch_finished = True
-        self._splits_finished = True
-        self.finish_splits()
-        self._capacity_flag = bool(
-            self._read([self.state.mem_capacity_reached])[0])
-        self._steps_since_poll = 0
-        self.t_build.add(time.perf_counter() - t0)
+        with trace.span("engine.load_all", self.t_build):
+            if bulk is None:
+                bulk = (self._consumed_chunks == 0
+                        and self.stream.total_points
+                        <= self.cfg.point_capacity)
+            if bulk:
+                with trace.span("load.drain"):
+                    items = list(self._stream_iter)
+                self._consumed_chunks += len(items)
+                self.last_batch_finished = True
+                if items:
+                    with trace.span("load.concat"):
+                        planes = [torch.cat([it[i] for it in items])
+                                  for i in range(4)]
+                        counts = np.concatenate([it[4] for it in items])
+                        del items
+                    self.ingest_chunk((*planes, counts), sync=False)
+                    del planes
+            else:
+                if poll_every is None:
+                    poll_every = 1 if self.cfg.estimated_state_bytes() \
+                        > (1 << 30) else 4
+                chunks = 0
+                while (item := self._next_item()) is not None:
+                    self._ingest_item(item, sync=False)
+                    chunks += 1
+                    if chunks % poll_every == 0:
+                        self._maybe_compact(poll=True)
+                        if self._capacity_flag:
+                            break
+                self.last_batch_finished = True
+            self._splits_finished = True
+            self.finish_splits()
+            self._capacity_flag = bool(self._read(
+                "engine.capacity", [self.state.mem_capacity_reached])[0])
+            self._steps_since_poll = 0
 
     def _end_of_stream(self) -> None:
         """Stream drained (or capacity reached): run the one-time end-of-load
@@ -473,20 +450,21 @@ class Engine:
         (round-1 budgets may have deferred them) until none is; returns the
         rounds run."""
         rounds = 0
-        while rounds < max_rounds:
-            ids, n = build.overfull_leaf_ids(self.cfg, self.state)
-            if self._built(build._host, n) == 0:
-                break
-            self.state = self._built(build.split_finish, self.cfg, self.state,
-                                     ids)
-            rounds += 1
+        with trace.span("build.finish"):
+            while rounds < max_rounds:
+                ids, n = build.overfull_leaf_ids(self.cfg, self.state)
+                if self._read("engine.overfull", n) == 0:
+                    break
+                self.state = self._counted(build.split_finish, self.cfg,
+                                           self.state, ids)
+                rounds += 1
         return rounds
 
     def _marks(self) -> dict:
         """All host-side watermarks in one device read. Not cached: the state
         is updated in place, so the same object's watermarks change."""
-        return _marks_of(self._read([getattr(self.state, f)
-                                     for _, f in _MARKS]))
+        return _marks_of(self._read("engine.marks", [getattr(self.state, f)
+                                                     for _, f in _MARKS]))
 
     def _maybe_compact(self, force: bool = False, poll: bool = False,
                        marks: dict | None = None) -> dict | None:
@@ -504,14 +482,14 @@ class Engine:
         self._adapt_candidate_windows(m)
         threshold = int(self.cfg.voxel_capacity * self.cfg.voxel_compact_watermark)
         if force or m["vox_used"] > threshold:
-            self.state = self._built(build.compact_voxels_auto, self.cfg,
-                                     self.state, m["vox_used"])
+            self.state = self._counted(build.compact_voxels_auto, self.cfg,
+                                       self.state, m["vox_used"])
             m = self._marks()
             seg_limit = min(self.cfg.seg_scan_window,
                             self.cfg.segment_capacity) // 2
             if m["num_segments"] > seg_limit:
-                self.state = self._built(build.compact_segments, self.cfg,
-                                         self.state)
+                self.state = self._counted(build.compact_segments,
+                                           self.cfg, self.state)
                 m = self._marks()
         return m
 
@@ -542,9 +520,8 @@ class Engine:
         not change with them."""
         from .octree import colorfilter
         self._maybe_compact(force=True)
-        syncs = colorfilter.host_syncs
-        self.state = colorfilter.filter_colors(self.cfg, self.state)
-        self.host_syncs += colorfilter.host_syncs - syncs
+        self.state = self._counted(colorfilter.filter_colors, self.cfg,
+                                   self.state)
         self._draw_pool = None
         self._pool_key = None
 
@@ -592,7 +569,7 @@ class Engine:
         counts and truncation, the engine counters and the watermarks ->
         (Stats, watermarks); notes what the next frame's windows are sized
         from."""
-        host = self._read(stack)
+        host = self._read("engine.frame", stack)
         stats = _to_stats(dict(zip(_STATS, host)))
         self._last_visible = (stats.num_visible_points,
                               stats.num_visible_voxels)
@@ -601,8 +578,10 @@ class Engine:
         return stats, _marks_of(host[len(_STATS):])
 
     def _stats(self, fstats: FrameStats | None) -> Stats:
-        self.host_syncs += 1
-        return _collect_stats(self.cfg, self.state, fstats)
+        """The engine counters as Python values, in one device read."""
+        vals = _stat_tensors(self.state, fstats)
+        return _to_stats(dict(zip(vals, self._read("engine.stats",
+                                                   vals.values()))))
 
     # --- draw pool (screen-budgeted decimation, render/drawpool.py) ---
     def _ensure_draw_pool(self, m: dict) -> None:
@@ -618,7 +597,8 @@ class Engine:
         vox_w = min(_size_bucket(max(m["vox_compacted"], 128)),
                     (self.state.vox_k0.shape[0] // 128) * 128)
         node_w = directory_window(m["num_nodes"], self.cfg.node_capacity)
-        pc_need, vc_need = self._read(_pool_need(self.state, cap))
+        pc_need, vc_need = self._read("engine.pool_need",
+                                      _pool_need(self.state, cap))
         live_nodes = m["num_nodes"]
         pc = _size_bucket(pc_need + 256 * live_nodes + 128)
         vc = _size_bucket(vc_need + 256 * live_nodes + 128)
@@ -628,7 +608,7 @@ class Engine:
         self._pool_key = key
 
     def _pooled_windows(self, u: Uniforms):
-        pp, pv, ep, ev = self._read(probe_pooled_counts(
+        pp, pv, ep, ev = self._read("engine.pool_probe", probe_pooled_counts(
             self.cfg, self.state, self._draw_pool, u))
         prev = getattr(self, "_last_pool_windows", (1 << 18,) * 4)
         ws = tuple(sample_window(n, p, cap) for n, p, cap in zip(
@@ -772,17 +752,17 @@ class Engine:
             # a one-step item rides as a K=1 chunk, through build_many
             rebuilt, m = self._ensure_stream_pool()
             args = self._pooled_args(u, rebuilt, m)
-            self.state, img, fstats = self._built(
+            self.state, img, fstats = self._counted(
                 _fused_chunk_pooled, self.cfg, self.state, width, height, bx,
                 by, bz, bc, counts, *args, self._draw_pool, u)
             k = bx.shape[0]
         elif self.stream.chunk_steps == 1:
-            self.state, img, fstats = self._built(
+            self.state, img, fstats = self._counted(
                 _fused_step, self.cfg, self.state, width, height, bx[0], by[0],
                 bz[0], bc[0], int(counts[0]), *self._windows(), u)
             k = 1
         else:
-            self.state, img, fstats = self._built(
+            self.state, img, fstats = self._counted(
                 _fused_chunk, self.cfg, self.state, width, height, bx, by, bz,
                 bc, counts, *self._windows(), u)
             k = bx.shape[0]

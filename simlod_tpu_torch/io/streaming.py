@@ -38,6 +38,7 @@ import torch
 from .. import native
 from ..config import resolve_device
 from ..formats import las, laz, simlod
+from ..utils import trace
 
 BATCH_POINTS = 1_000_000   # loader batch granularity (reference MAX_BATCH_SIZE)
 
@@ -163,9 +164,10 @@ class PointStream:
         self.bytes_read = 0
         self.points_loaded = 0
         self.t_decode = 0.0     # loaders: file read + column decode
-        self.t_copy = 0.0       # uploader: staging-plane fills
-        self.t_put = 0.0        # uploader: H2D issue
-        self.t_start = time.perf_counter()
+        # this stream's `stream.stage` spans (uploader: pinned-plane fills and
+        # the H2D copy launches) and `stream.wait` spans (consumer blocked)
+        self.t_stage = trace.Timings()
+        self.t_wait = trace.Timings()
 
         self._loaders = [threading.Thread(target=self._guard(self._loader),
                                           daemon=True)
@@ -301,14 +303,13 @@ class PointStream:
                 step, fill = step + 1, 0
             if step == 0:
                 return
-            for p in planes:
-                p[step:] = 0
-            t0 = time.perf_counter()
-            out, events = self._place(planes)
+            with trace.span("stream.stage", self.t_stage):
+                for p in planes:
+                    p[step:] = 0
+                out, events = self._place(planes)
             if self._cuda:
                 inflight.append((events, planes))
             item = (out, events, counts.copy())
-            self.t_put += time.perf_counter() - t0
             if not self._put(self._ready, item):
                 return
             counts = np.zeros(K, np.int32)
@@ -322,24 +323,21 @@ class PointStream:
 
         def consume(cols, n):
             nonlocal step, fill
-            t0 = time.perf_counter()
             off = 0
             # a stopped stream's flush gives up on its put: stop filling then
             while off < n and not self._stop.is_set():
                 take = min(B - fill, n - off)
-                for p, c in zip(planes, cols):
-                    p[step, fill:fill + take] = torch.from_numpy(
-                        np.ascontiguousarray(c[off:off + take]))
+                with trace.span("stream.stage", self.t_stage):
+                    for p, c in zip(planes, cols):
+                        p[step, fill:fill + take] = torch.from_numpy(
+                            np.ascontiguousarray(c[off:off + take]))
                 fill += take
                 off += take
                 if fill == B:
                     counts[step] = B
                     step, fill = step + 1, 0
                     if step == K:
-                        self.t_copy += time.perf_counter() - t0
                         flush()
-                        t0 = time.perf_counter()
-            self.t_copy += time.perf_counter() - t0
 
         # batches arrive from several loaders; pack them in file order
         pending, nxt = {}, 0
@@ -369,16 +367,11 @@ class PointStream:
         """Yield the uploaded chunks in file order. Ends once the uploader's
         end marker arrives or, after stop(), once nothing is left to take
         (a stopped uploader gives up on its end marker); raises if a pipeline
-        thread failed."""
+        thread failed. The time blocked on each item is a `stream.wait`
+        span."""
         while True:
-            try:
-                item = self._ready.get(timeout=0.1)
-            except queue.Empty:
-                if self._error is not None:
-                    raise RuntimeError("point stream failed") from self._error
-                if self._stop.is_set():
-                    return
-                continue
+            with trace.span("stream.wait", self.t_wait):
+                item = self._next_ready()
             if item is None:
                 if self._error is not None:
                     raise RuntimeError("point stream failed") from self._error
@@ -394,6 +387,16 @@ class PointStream:
                         t.record_stream(cur)
             yield (*planes, counts)
 
+    def _next_ready(self):
+        """The next uploaded item; None at the end marker, or once the
+        stream is stopped or failed and nothing is left to take."""
+        while True:
+            try:
+                return self._ready.get(timeout=0.1)
+            except queue.Empty:
+                if self._error is not None or self._stop.is_set():
+                    return None
+
     def stop(self):
         """Stop and join the pipeline threads."""
         self._stop.set()
@@ -408,9 +411,10 @@ class PointStream:
         self._uploader.join(timeout=2.0)
 
     def stats(self):
-        dt = time.perf_counter() - self.t_start
+        """Points and bytes read so far, and seconds summed over threads: the
+        loaders' read and decode (t_decode), the uploader's staging
+        (stage_s), the consumer's wait for items (wait_s)."""
         return dict(points_loaded=self.points_loaded, bytes_read=self.bytes_read,
-                    seconds=dt,
-                    mps=self.points_loaded / dt / 1e6 if dt > 0 else 0.0,
                     t_decode=round(self.t_decode, 3),
-                    t_copy=round(self.t_copy, 3), t_put=round(self.t_put, 3))
+                    stage_s=round(self.t_stage.total, 3),
+                    wait_s=round(self.t_wait.total, 3))

@@ -6,8 +6,8 @@ splits as directory surgery over sorted intervals, lazy first-come voxel dedup).
 What changed in the port:
 
   - `lax.while_loop` / `lax.cond` / `lax.scan` are Python loops and `if`s. Where a
-    condition is a device scalar the loop reads it back (`_host`), which makes the
-    host wait for the device. `host_syncs` counts those reads; a bulk-load step
+    condition is a device scalar the loop reads it back (`trace.sync`, one site
+    per call site), which makes the host wait for the device; a bulk-load step
     costs 4 + (cascade rounds) of them (see PERF.md).
   - Multi-key `lax.sort`s are stable `torch.sort`s over packed int64 keys
     (ops/segments.lexsort). Where the JAX package sorts unstably, rows with equal
@@ -29,18 +29,8 @@ from ..ops import morton, ragged
 from ..ops.segments import (I32_MAX, compact_indices, compact_mask_via_sort,
                             cumsum32, dus, exclusive_cumsum, iota, lexsort,
                             pack2, popcount32, roll1, scatter_drop)
+from ..utils import trace
 from .structures import OctreeState
-
-# device-scalar reads made by the builder's control flow (each one waits for the
-# device); the engine reads the difference around a load
-host_syncs = 0
-
-
-def _host(x: torch.Tensor):
-    """Read a device scalar back to the host for control flow."""
-    global host_syncs
-    host_syncs += 1
-    return x.item()
 
 
 class Work(NamedTuple):
@@ -70,7 +60,8 @@ class Runs(NamedTuple):
 
 
 def _i32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.int32, device=device)
+    # filled on the device: a copy from the host waits for the device
+    return torch.full((), v, dtype=torch.int32, device=device)
 
 
 def boundary_key(nx, ny, nz, level):
@@ -140,7 +131,7 @@ def compute_runs(cfg: EngineConfig, work: Work) -> Runs:
     B = work.leaf.shape[0]
     valid = work.valid
     prev_valid = roll1(valid)
-    prev_valid[0] = False
+    prev_valid[:1].fill_(False)
     starts = valid & (~prev_valid | (work.leaf != roll1(work.leaf)))
     RW = min(cfg.run_window, B)
     r_row_f, n_runs = compact_indices(starts)
@@ -378,13 +369,13 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
     tstart = torch.where(tv, runs.r_row[srows], B)
     tend = torch.where(tv, runs.r_row[srows] + runs.r_cnt[srows], B)
     total_spill = torch.where(take_p, pts_p, 0).sum(dtype=torch.int32)
-    has_spill = bool(_host(total_spill > 0))
+    has_spill = trace.sync("build.spill", total_spill > 0)
 
     # --- gather the taken nodes' stored points once; sort by full Morton key ---
     just = torch.zeros(n_cap, dtype=torch.bool, device=dev)
     scatter_drop(just, torch.where(tv, tids.clamp(min=0), n_cap), True)
     if has_spill:
-        memflag = torch.tensor(False, device=dev)
+        memflag = torch.zeros((), dtype=torch.bool, device=dev)
         SGW = min(cfg.seg_scan_window, s_cap)
         memflag = memflag | (state.num_segments > SGW)
         s_sel = (state.seg_cnt[:SGW] > 0) & (state.seg_node[:SGW] >= 0) & \
@@ -417,7 +408,7 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
         z = torch.zeros(SPW, dtype=torch.int32, device=dev)
         sk0, sk1, sk2, sgoff, srgba, sseg, sglvl = (z + mx, z, z, z, z, z, z)
         n_spill = _i32(0, dev)
-        memflag = torch.tensor(False, device=dev)
+        memflag = torch.zeros((), dtype=torch.bool, device=dev)
         sv = torch.zeros(SS, dtype=torch.bool, device=dev)
         ssafe = torch.zeros(SS, dtype=torch.int32, device=dev)
     state.mem_capacity_reached = state.mem_capacity_reached | memflag
@@ -448,7 +439,8 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
     # the cascade runs while the previous round split something (the JAX
     # loop carries n_take in its n_alive slot)
     n_took, rounds = n_take1, 0
-    while rounds < cfg.split_rounds and _host(n_took) > 0:
+    while rounds < cfg.split_rounds \
+            and trace.sync("build.split_round", n_took) > 0:
         c_id, c_lvl, c_nx, c_ny, c_nz, c_ws, c_we, c_ss, c_se = frontier
         alive = c_id >= 0
         wcnt = ecs_pad[c_we.clamp(0, B).long()] - ecs_pad[c_ws.clamp(0, B).long()]
@@ -637,7 +629,7 @@ def batch_voxel_candidates(cfg: EngineConfig, state: OctreeState, work: Work,
     mleaf, mlo, mrgba = ds(sleaf), ds(slo), ds(srgba)
     ecnt = torch.where(grow < n_multi, ds(scnt), 0)
     total2 = ecnt.sum(dtype=torch.int32)
-    for r in range(_host(ecnt.max())):
+    for r in range(trace.sync("build.cand_rounds", ecnt.max())):
         k_r = (ecnt > r).sum(dtype=torch.int32)
         ek0, ek1, ek2l = morton.key_words_at_level(mw0, mw1, mw2, mlo + r)
         room = torch.clamp(cfg.voxel_capacity - state.vox_used, min=0)
@@ -710,10 +702,15 @@ def build_step(cfg: EngineConfig, state: OctreeState, x, y, z, rgba,
     """Ingest one batch: route -> split loop -> voxel sampling -> insert.
     x/y/z are f32 columns and rgba an int32 (u32 bit pattern) column, all of the
     same width on the state's device; `count` is the number of valid rows."""
-    state, work = route(cfg, state, x, y, z, rgba, count)
-    state, work, runs, spill_extra = split_loop(cfg, state, work)
-    state = batch_voxel_candidates(cfg, state, work, spill_extra)
-    return insert_points(cfg, state, work, runs)
+    with trace.span("build.step"):
+        with trace.span("build.route"):
+            state, work = route(cfg, state, x, y, z, rgba, count)
+        with trace.span("build.split"):
+            state, work, runs, spill_extra = split_loop(cfg, state, work)
+        with trace.span("build.voxels"):
+            state = batch_voxel_candidates(cfg, state, work, spill_extra)
+        with trace.span("build.insert"):
+            return insert_points(cfg, state, work, runs)
 
 
 def build_many(cfg: EngineConfig, state: OctreeState, x_batches, y_batches,
@@ -721,12 +718,13 @@ def build_many(cfg: EngineConfig, state: OctreeState, x_batches, y_batches,
     """Ingest K batches ([K, B] planes, `counts` host ints) in order, compacting
     the voxel store whenever it crosses the compaction watermark."""
     wm = int(cfg.voxel_capacity * cfg.voxel_compact_watermark)
-    for k in range(x_batches.shape[0]):
-        state = build_step(cfg, state, x_batches[k], y_batches[k], z_batches[k],
-                           rgba_batches[k], int(counts[k]))
-        used = _host(state.vox_used)
-        if used > wm:
-            state = compact_voxels_auto(cfg, state, used=used)
+    with trace.span("build.many"):
+        for k in range(x_batches.shape[0]):
+            state = build_step(cfg, state, x_batches[k], y_batches[k],
+                               z_batches[k], rgba_batches[k], int(counts[k]))
+            used = trace.sync("build.vox_used", state.vox_used)
+            if used > wm:
+                state = compact_voxels_auto(cfg, state, used=used)
     return state
 
 
@@ -851,28 +849,31 @@ def _compact_voxels_core(cfg: EngineConfig, state: OctreeState,
 
 def compact_voxels(cfg: EngineConfig, state: OctreeState) -> OctreeState:
     """Full-capacity voxel compaction (see _compact_voxels_core)."""
-    return _compact_voxels_core(cfg, state, state.vox_k0.shape[0])
+    with trace.span("build.compact"):
+        return _compact_voxels_core(cfg, state, state.vox_k0.shape[0])
 
 
 def compact_voxels_auto(cfg: EngineConfig, state: OctreeState,
                         used: int | None = None) -> OctreeState:
     """Compaction over exactly the live rows [0, vox_used). `used` is the
     watermark if the caller already read it back."""
-    if used is None:
-        used = _host(state.vox_used)
-    return _compact_voxels_core(cfg, state, max(int(used), 1))
+    with trace.span("build.compact"):
+        if used is None:
+            used = trace.sync("build.compact_used", state.vox_used)
+        return _compact_voxels_core(cfg, state, max(int(used), 1))
 
 
 def compact_segments(cfg: EngineConfig, state: OctreeState) -> OctreeState:
     """Drop dead (split-killed) segment directory entries."""
-    s_cap = state.seg_node.shape[0]
-    rows = iota(s_cap, state.device)
-    alive = (rows < state.num_segments) & (state.seg_cnt > 0)
-    (n, o, c), n_alive = compact_mask_via_sort(
-        alive, (state.seg_node, state.seg_off, state.seg_cnt))
-    keep = rows < n_alive
-    state.seg_node = torch.where(keep, n, -1)
-    state.seg_off = torch.where(keep, o, 0)
-    state.seg_cnt = torch.where(keep, c, 0)
-    state.num_segments = n_alive
-    return state
+    with trace.span("build.compact"):
+        s_cap = state.seg_node.shape[0]
+        rows = iota(s_cap, state.device)
+        alive = (rows < state.num_segments) & (state.seg_cnt > 0)
+        (n, o, c), n_alive = compact_mask_via_sort(
+            alive, (state.seg_node, state.seg_off, state.seg_cnt))
+        keep = rows < n_alive
+        state.seg_node = torch.where(keep, n, -1)
+        state.seg_off = torch.where(keep, o, 0)
+        state.seg_cnt = torch.where(keep, c, 0)
+        state.num_segments = n_alive
+        return state

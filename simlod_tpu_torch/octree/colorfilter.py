@@ -26,10 +26,8 @@ from ..config import EngineConfig
 from ..ops import morton
 from ..ops.segments import (I32_MAX, cumsum32, expand_segments, lexsort,
                             roll1, run_reduce_sum, run_starts, scatter_drop)
+from ..utils import trace
 from .structures import OctreeState
-
-# device reads made by filter_colors (the engine adds them to its host_syncs)
-host_syncs = 0
 
 
 def _level_counts(state: OctreeState) -> list[list[int]]:
@@ -51,9 +49,8 @@ def _level_counts(state: OctreeState) -> list[list[int]]:
     counts[1].index_add_(0, state.level[sn].clamp(0, L - 1).long(),
                          torch.where(seg_ok, state.seg_cnt, zero).long())
     max_level = torch.where(active, state.level, zero).max().reshape(1)
-    global host_syncs
-    host_syncs += 1
-    out = torch.cat([counts.reshape(-1), max_level.long()]).tolist()
+    out = trace.sync("colorfilter.levels",
+                     torch.cat([counts.reshape(-1), max_level.long()]))
     return [out[:L], out[L:2 * L], out[2 * L:3 * L], out[3 * L]]
 
 

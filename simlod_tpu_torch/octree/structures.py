@@ -115,14 +115,18 @@ def init_state(cfg: EngineConfig, box_min, box_max, device=None) -> OctreeState:
     p_cap = rnd(cfg.point_capacity + cfg.working_capacity, 128)
     v_cap = rnd(cfg.voxel_capacity + _cand_capacity(cfg), 128)
 
-    box_min = torch.as_tensor(np.asarray(box_min, np.float32)).to(device)
-    box_max = torch.as_tensor(np.asarray(box_max, np.float32)).to(device)
+    # every tensor is filled on the device: a copy from the host would wait
+    # for the device
+    box = lambda b: torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                            device=device)
+                                 for v in np.asarray(b, np.float32)])
+    box_min, box_max = box(box_min), box(box_max)
     cube_size = torch.max(box_max - box_min)
 
     i32 = torch.int32
     zeros = lambda n: torch.zeros((n,), dtype=i32, device=device)
     neg = lambda n: torch.full((n,), -1, dtype=i32, device=device)
-    scalar = lambda v: torch.tensor(v, dtype=i32, device=device)
+    scalar = lambda v: torch.full((), v, dtype=i32, device=device)
 
     return OctreeState(
         child_base=neg(n_cap), parent=neg(n_cap), level=zeros(n_cap),
@@ -147,7 +151,7 @@ def init_state(cfg: EngineConfig, box_min, box_max, device=None) -> OctreeState:
         box_min=box_min, cube_size=cube_size,
         num_points_processed=scalar(0), num_points_dropped=scalar(0),
         num_candidates_dropped=scalar(0),
-        mem_capacity_reached=torch.tensor(False, device=device),
+        mem_capacity_reached=torch.zeros((), dtype=torch.bool, device=device),
     )
 
 

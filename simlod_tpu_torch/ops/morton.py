@@ -55,7 +55,7 @@ def quantize(xyz, box_min, cube_size, bits: int = C.FULL_GRID_BITS):
 def quantize_cols(x, y, z, box_min, cube_size, bits: int = C.FULL_GRID_BITS):
     """Float positions -> integer grid coords in [0, 2^bits), truncating like the
     reference (progressive_octree_voxels.cu:148-156), clamped at the max edge."""
-    g = torch.tensor(float(1 << bits), dtype=torch.float32, device=x.device)
+    g = torch.full((), float(1 << bits), dtype=torch.float32, device=x.device)
     inv = g / cube_size.to(torch.float32)
     hi = (1 << bits) - 1
     qx = torch.floor((x - box_min[0]) * inv).to(torch.int32).clamp(0, hi)

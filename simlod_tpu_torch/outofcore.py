@@ -167,6 +167,7 @@ class OutOfCoreEngine:
         """Copy the brick's used prefixes to the host; the device state is
         replaced when the next brick resets the engine."""
         nn, ns, vu, pu, processed, dropped = self.engine._read(
+            "outofcore.evict",
             [s.num_nodes, s.num_segments, s.vox_used, s.pool_used,
              s.num_points_processed, s.num_points_dropped])
         pull = lambda col, n: getattr(s, col)[:n].cpu().numpy().copy()

@@ -23,8 +23,8 @@ import torch
 
 from ..config import EngineConfig, Settings, Uniforms
 from ..io.streaming import PointStream
-from ..octree import build
 from ..render import camera as camera_mod
+from ..utils import trace
 from . import shard
 
 
@@ -54,13 +54,12 @@ class ShardedEngine:
 
     @contextlib.contextmanager
     def _counting(self):
-        """Add the device reads of the builder and the shard layer made inside
-        the block to host_syncs."""
-        before = build.host_syncs + shard.host_syncs
+        """Add the device reads made inside the block to host_syncs."""
+        before = trace.reads()
         try:
             yield
         finally:
-            self.host_syncs += build.host_syncs + shard.host_syncs - before
+            self.host_syncs += trace.reads() - before
 
     def _sync(self):
         for d in set(self.mesh.devices):
@@ -130,7 +129,8 @@ class ShardedEngine:
         threshold = int(self.cfg.voxel_capacity
                         * self.cfg.voxel_compact_watermark)
         with self._counting():
-            used = shard._read([st.vox_used for st in self.state],
+            used = shard._read("sharded.vox_used",
+                               [st.vox_used for st in self.state],
                                self.mesh.devices[0])
             if force or max(used) > threshold:
                 self.state = shard.sharded_compact(self.cfg, self.mesh,
@@ -204,7 +204,8 @@ class ShardedEngine:
         before every frame; here only when a shard has rows appended since
         its last compaction (a compacted store compacts to itself)."""
         with self._counting():
-            v = shard._read([t for s in self.state
+            v = shard._read("sharded.compacted",
+                            [t for s in self.state
                              for t in (s.vox_used, s.vox_compacted)],
                             self.mesh.devices[0])
         if any(u > c for u, c in zip(v[0::2], v[1::2])):
@@ -222,8 +223,9 @@ class ShardedEngine:
                 s.num_nodes, leaf.sum(dtype=torch.int32),
                 s.num_points_processed, s.num_points_dropped, s.vox_used,
                 s.mem_capacity_reached.to(torch.int32)]).to(dev0))
-        self.host_syncs += 1
-        m = torch.stack(rows).to(torch.int64).tolist()
+        with self._counting():
+            m = trace.sync("sharded.report",
+                           torch.stack(rows).to(torch.int64))
         col = lambda i: [r[i] for r in m]
         return dict(
             num_nodes=col(0),

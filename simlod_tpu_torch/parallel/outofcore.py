@@ -109,7 +109,7 @@ class ShardedOutOfCoreEngine:
         eng = self.engine
         n = len(states)
         with eng._counting():
-            v = shard._read([t for s in states for t in (
+            v = shard._read("sharded.evict", [t for s in states for t in (
                 s.num_nodes, s.vox_used, s.num_points_processed,
                 s.num_points_dropped)], self.mesh.devices[0])
         nn = np.asarray(v[0::4], np.int32)

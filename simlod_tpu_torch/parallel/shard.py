@@ -21,9 +21,9 @@ What changed in the port:
   - the shards' states are a list of OctreeStates, not one stacked state:
     shards may live on different devices;
   - lax.scan / lax.cond become Python loops and host decisions. The per-shard
-    counts they need are read for all shards in one device read (`host_syncs`
-    counts those reads): the received counts once per step, so every shard's
-    build takes a host count and no tensor of another device;
+    counts they need are read for all shards in one device read (`_read`,
+    counted by `trace.sync`): the received counts once per step, so every
+    shard's build takes a host count and no tensor of another device;
   - a step with count 0 skips the exchange and the build (both do nothing
     then), so a render-only step is the render alone.
 Not ported (TPU workarounds, ROADMAP "do not port"): the scan-length buckets of
@@ -46,10 +46,7 @@ from ..ops import morton
 from ..ops.segments import compact_mask_via_sort, iota
 from ..render import raster, raster_tiles
 from ..render.render import composite_frames, frame_samples
-
-# device reads made for all shards at once (each one waits for the devices);
-# the engine reads the difference around its calls
-host_syncs = 0
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,12 +116,11 @@ def sharded_state_to_numpy(states: list[OctreeState]) -> dict:
     return {k: np.stack([d[k] for d in dicts]) for k in dicts[0]}
 
 
-def _read(tensors, device) -> list[int]:
-    """0-d tensors of any shards -> Python ints, in one device read."""
-    global host_syncs
-    host_syncs += 1
-    return torch.stack([t.reshape(()).to(device=device, dtype=torch.int64)
-                        for t in tensors]).tolist()
+def _read(site: str, tensors, device) -> list[int]:
+    """0-d tensors of any shards -> Python ints, in one device read at
+    `site` (trace.sync)."""
+    return trace.sync(site, torch.stack(
+        [t.reshape(()).to(device=device, dtype=torch.int64) for t in tensors]))
 
 
 def _slot_rows(Bl: int, n: int, slot_factor: int) -> int:
@@ -219,7 +215,7 @@ def _route_step(cfg: EngineConfig, mesh: Mesh, level: int, slot_factor: int,
         owners.append(_brick_owner(qx, qy, qz, level, n))
     counts_l = [min(max(count - s * Bl, 0), Bl) for s in range(n)]
     recv, my_count, dropped = _exchange(cols, owners, counts_l, mesh, S)
-    my = _read(my_count, mesh.devices[0])
+    my = _read("shard.counts", my_count, mesh.devices[0])
     for s, st in enumerate(states):
         st.num_points_dropped = st.num_points_dropped + dropped[s]
         states[s] = build.build_step(cfg, st, *recv[s], my[s])
@@ -327,7 +323,8 @@ def build_sharded_chunk(cfg: EngineConfig, mesh: Mesh, slot_factor: int = 4):
             cols = [[p[k] for p in ps] for ps in planes]
             _route_step(cfg, mesh, level, slot_factor, states, cols,
                         int(counts[k]))
-            used = _read([st.vox_used for st in states], mesh.devices[0])
+            used = _read("shard.vox_used", [st.vox_used for st in states],
+                         mesh.devices[0])
             for s, u in enumerate(used):
                 if u > wm:
                     states[s] = build.compact_voxels_auto(cfg, states[s],
@@ -342,7 +339,8 @@ def sharded_compact(cfg: EngineConfig, mesh: Mesh, states: list[OctreeState],
     """Voxel compaction of every shard over exactly its live rows. `used` are
     the shards' watermarks if the caller already read them."""
     if used is None:
-        used = _read([st.vox_used for st in states], mesh.devices[0])
+        used = _read("shard.compact_used", [st.vox_used for st in states],
+                     mesh.devices[0])
     return [build.compact_voxels_auto(cfg, st, used=u)
             for st, u in zip(states, used)]
 
@@ -357,7 +355,7 @@ def sharded_finish_splits(cfg: EngineConfig, mesh: Mesh,
     selection, which changes nothing)."""
     for _ in range(max_rounds):
         sel = [build.overfull_leaf_ids(cfg, st) for st in states]
-        over = _read([k for _, k in sel], mesh.devices[0])
+        over = _read("shard.overfull", [k for _, k in sel], mesh.devices[0])
         if max(over) == 0:
             break
         states = [build.split_finish(cfg, st, ids) if k > 0 else st

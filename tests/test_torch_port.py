@@ -48,7 +48,8 @@ MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.app", "simlod_tpu_torch.config"
            "simlod_tpu_torch.tools.las2simlod",
            "simlod_tpu_torch.utils.debugprint",
            "simlod_tpu_torch.utils.hostutils",
-           "simlod_tpu_torch.utils.hotreload", "simlod_tpu_torch.viewer"]
+           "simlod_tpu_torch.utils.hotreload", "simlod_tpu_torch.utils.trace",
+           "simlod_tpu_torch.viewer"]
 
 
 def test_port_never_imports_jax():
