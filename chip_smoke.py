@@ -48,7 +48,8 @@ Phases (every one must pass; a failure raises and exits non-zero):
      same eager calls; then (phase_graphs) the graph frame held bit-equal,
      image and Stats, to the eager frame of its key over 20 orbit cameras
      and across a window change, EDL off, HQS off, boxes on, each colour
-     mode, the tile route and a compaction (a changed key captures again);
+     mode, the tile route and a compaction (a changed key captures again;
+     an in-place compaction keeps the key);
      the launch counters over 5 replays; the capture count and ms; the
      memory a graph holds and the peak with and without graphs; device ms
      a frame (the replay and the eager span back to back) and host µs to
@@ -2006,7 +2007,8 @@ def graph_toggles(eng, pooled: bool) -> list:
     """(name, action, undo, whether it changes the frame's key) for each
     switch phase_graphs crosses: a window change, EDL off, HQS off (read on
     the device: the same key), boxes on, each colour mode, the tile route, a
-    compaction and, on a pooled frame, a pool rebuild."""
+    compaction (in place, and of a state already compacted: the same key)
+    and, on a pooled frame, a pool rebuild."""
     st = eng.settings
 
     def setting(name, value):
@@ -2045,7 +2047,7 @@ def graph_toggles(eng, pooled: bool) -> list:
            ("white", *setting("color_white", True), True),
            ("tile route", tile(True), tile(False), True),
            ("compaction", lambda: eng._maybe_compact(force=True),
-            lambda: None, True)]
+            lambda: None, False)]
     if pooled:
         out.append(("pool rebuild", rebuild, lambda: None, True))
     return out

@@ -16,7 +16,10 @@ as one JSON line; the whole record goes to --out:
     (Engine.open + load_all), the device reads per site, and how much of
     the load's seconds the spans cover;
   - `audit`: one load under torch.cuda.set_sync_debug_mode("warn"): every
-    synchronizing call, and whether a `sync.<site>` span holds it;
+    synchronizing call, and whether a `sync.<site>` span holds it; on the
+    card `audit_cold` audits the warm-up load too (the one whose build
+    captures its graphs), and `memory` gives the card's peak allocated and
+    reserved bytes over the untraced loads;
   - `traced`: loads under torch.profiler (CPU and CUDA): their seconds
     against the untraced loads' (the on-cost), the card's idle seconds put
     down to the innermost program span at each gap's midpoint, and the
@@ -56,7 +59,8 @@ from simlod_tpu_torch.utils import trace  # noqa: E402
 PHASES = ("engine.open", "open.config", "open.stream", "open.state",
           "engine.load_all", "load.drain", "stream.wait", "load.concat",
           "build.many", "build.step", "build.route", "build.split",
-          "build.voxels", "build.insert", "build.compact", "build.finish")
+          "build.voxels", "build.insert", "build.compact", "build.finish",
+          "build.replay", "build.capture", "build.eager")
 LOAD_ALL_CHILDREN = ("load.drain", "load.concat", "build.many",
                      "build.finish", "sync.engine.capacity")
 
@@ -234,7 +238,12 @@ def main(argv=None) -> int:
                     overrides=config.get("engine", {}),
                     settings=R.settings_of(config), engine_cfg=engine_cfg)
         loop = loop_class(cell.traffic["loop"])(ctx)
-        loop.setup()
+        if cuda:
+            out["audit_cold"] = audit(loop)     # the warm-up load
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        else:
+            loop.setup()
         out["off_cost"] = off_cost()
         rows = []
         for _ in range(args.loads):
@@ -246,6 +255,9 @@ def main(argv=None) -> int:
         out["off_cost"]["spans_per_load"] = statistics.median(
             x["spans"] for x in rows)
         if cuda:
+            out["memory"] = dict(
+                peak_allocated=torch.cuda.max_memory_allocated(device),
+                peak_reserved=torch.cuda.max_memory_reserved(device))
             out["audit"] = audit(loop)
             out["traced"] = traced(loop, args.traced)
             on = statistics.median(x["loop_s"] for x in out["traced"]["loads"])
@@ -259,7 +271,7 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).write_text(json.dumps(out, indent=1))
     brief = {k: v for k, v in out.items() if k not in ("loads", "traced",
-                                                       "audit")}
+                                                       "audit", "audit_cold")}
     med = lambda key: statistics.median(x[key] for x in rows)
     brief["median"] = {k: med(k) for k in (
         "loop_s", "load_s", "sync_pct", "sync_count", "step_host_ms",
@@ -272,11 +284,16 @@ def main(argv=None) -> int:
         x["phases"][n]["pct"] for x in rows if n in x["phases"])
         for n in PHASES if n in rows[0]["phases"]}
     brief["syncs"] = {n: v["count"] for n, v in rows[-1]["syncs"].items()}
-    if "audit" in out:
-        brief["audit"] = dict(
-            uncounted_in_program=out["audit"]["uncounted_in_program"],
-            calls=[(c["counted"], c["span"], c["site"], c["thread"],
-                    c["calls"]) for c in out["audit"]["calls"]])
+    brief["stretches"] = {n: rows[-1]["phases"][n]["count"] for n in (
+        "build.replay", "build.capture", "build.eager")
+        if n in rows[-1]["phases"]}
+    for name in ("audit_cold", "audit"):
+        if name in out:
+            brief[name] = dict(
+                host_syncs=out[name]["host_syncs"],
+                uncounted_in_program=out[name]["uncounted_in_program"],
+                calls=[(c["counted"], c["span"], c["site"], c["thread"],
+                        c["calls"]) for c in out[name]["calls"]])
     if "traced" in out:
         t = out["traced"]
         brief["traced"] = dict(idle=t["idle"], busy_s=t["busy_s"],

@@ -88,7 +88,7 @@ class EngineConfig:
     # Kept for config compatibility (sizes nothing).
     candidate_factor: int = 3
     # Rows of the batch allowed to emit candidates at multiple levels per step
-    # (build.batch_voxel_candidates); 0 = auto (batch/4).
+    # (build._candidates); 0 = auto (batch/4).
     cand_multi_rows: int = 1 << 18
 
     # Voxel-store dedup compaction trigger (fraction of voxel_capacity).

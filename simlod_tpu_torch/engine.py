@@ -23,8 +23,10 @@ Engine policies kept from the JAX package (and the reference):
 The JAX package's compile-storm workarounds (AOT preload, stream shape pins,
 the XLA cache, the per-state watermark cache) are not part of this port:
 PyTorch runs eagerly, and the state is updated in place. Its jitted frame
-has a counterpart: on the card `render` replays a CUDA graph per static key
-(render.FrameGraphs).
+and build step have counterparts: on the card `render` replays a CUDA graph
+per static key (render.FrameGraphs), and every build on the engine's state
+replays the step's stretches as CUDA graphs (octree/graphs.BuildGraphs),
+which `reset` keeps across opens by re-initialising the state in place.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ from .config import (EngineConfig, Settings, Stats, UniformBuffer, Uniforms,
                      resolve_device)
 from .io.streaming import PointStream, scan_paths
 from .octree import build
-from .octree.structures import OctreeState, init_state
+from .octree.graphs import BuildGraphs
+from .octree.structures import OctreeState, init_state, reset_state
 from .ops import ragged
 from .render import camera as camera_mod
 from .render import drawpool as drawpool_mod
@@ -128,10 +131,10 @@ def _frame_stack(state: OctreeState, fstats: FrameStats) -> torch.Tensor:
 
 def _fused_step(cfg: EngineConfig, state: OctreeState, width: int, height: int,
                 x, y, z, rgba, count: int, pw: int, vw: int, nw: int, sw: int,
-                uniforms: Uniforms):
+                uniforms: Uniforms, graphs: BuildGraphs):
     """One simultaneous build+render step (the two reference kernels in turn):
     one batch through build_step, then an exact frame."""
-    state = build.build_step(cfg, state, x, y, z, rgba, count)
+    state = build.build_step(cfg, state, x, y, z, rgba, count, graphs)
     img, fstats = render_frame(cfg, state, width, height, uniforms, pw, vw, nw,
                                sw)
     return state, img, fstats
@@ -139,10 +142,10 @@ def _fused_step(cfg: EngineConfig, state: OctreeState, width: int, height: int,
 
 def _fused_chunk(cfg: EngineConfig, state: OctreeState, width: int,
                  height: int, bx, by, bz, brgba, counts, pw: int, vw: int,
-                 nw: int, sw: int, uniforms: Uniforms):
+                 nw: int, sw: int, uniforms: Uniforms, graphs: BuildGraphs):
     """A K-step chunk through build_many (which compacts at the watermark),
     then one exact frame."""
-    state = build.build_many(cfg, state, bx, by, bz, brgba, counts)
+    state = build.build_many(cfg, state, bx, by, bz, brgba, counts, graphs)
     img, fstats = render_frame(cfg, state, width, height, uniforms, pw, vw, nw,
                                sw)
     return state, img, fstats
@@ -151,12 +154,12 @@ def _fused_chunk(cfg: EngineConfig, state: OctreeState, width: int,
 def _fused_chunk_pooled(cfg: EngineConfig, state: OctreeState, width: int,
                         height: int, bx, by, bz, brgba, counts, ppw: int,
                         pvw: int, epw: int, evw: int, nw: int, sw: int,
-                        pool, uniforms: Uniforms):
+                        pool, uniforms: Uniforms, graphs: BuildGraphs):
     """A K-step chunk through build_many, then one frame drawn through the
     draw pool. The pool is a snapshot with bounded staleness: nodes it misses
     render through the exact path (drawpool.split_masks), so a stale pool
     costs exact-path time, never samples."""
-    state = build.build_many(cfg, state, bx, by, bz, brgba, counts)
+    state = build.build_many(cfg, state, bx, by, bz, brgba, counts, graphs)
     img, fstats = render_frame_pooled(cfg, state, pool, width, height,
                                       uniforms, ppw, pvw, epw, evw, nw, sw)
     return state, img, fstats
@@ -237,6 +240,9 @@ class Engine:
         # graphs (on the card)
         self._uniform_buffer: UniformBuffer | None = None
         self.graphs = FrameGraphs()
+        # the build step's stretches as CUDA graphs (on the card), kept
+        # across opens while the state keeps its tensors
+        self.build_graphs = BuildGraphs()
         self.reset_counters()
 
     def reset_counters(self):
@@ -267,14 +273,22 @@ class Engine:
     # --- lifecycle (reference reset()/reload(), :644-809) ---
     def reset(self, box_min, box_max):
         """Fresh octree over the box. Stops and drops the current stream:
-        `open` is the reload path."""
+        `open` is the reload path. A state of the config's shapes is
+        re-initialised in place (reset_state), so the build graphs keep
+        their keys; any other is replaced."""
         if self.stream is not None:
             self.stream.stop()
         self.stream = None
         self._stream_iter = None
-        # no graph can replay on the new state: free their memory pools
+        # the frames' keys hold the windows of the old octree: free their
+        # memory pools
         self.graphs.clear()
-        self.state = init_state(self.cfg, box_min, box_max, self.device)
+        if self.state is None or not reset_state(self.state, self.cfg,
+                                                 box_min, box_max):
+            # no build graph can replay on a new state
+            self.build_graphs.clear()
+            self.state = None       # free the old state before the new
+            self.state = init_state(self.cfg, box_min, box_max, self.device)
         self.reset_counters()
         if self.settings.auto_focus_on_load:
             self.orbit.focus_box(np.zeros(3),
@@ -332,7 +346,7 @@ class Engine:
         host-side compaction policy runs after and the device is waited on."""
         t0 = time.perf_counter()
         self.state = self._counted(build.build_step, self.cfg, self.state, x,
-                                   y, z, rgba, int(count))
+                                   y, z, rgba, int(count), self.build_graphs)
         self.steps += 1
         self._steps_since_poll += 1
         if sync:
@@ -346,7 +360,7 @@ class Engine:
         t0 = time.perf_counter()
         bx, by, bz, bc, counts = item
         self.state = self._counted(build.build_many, self.cfg, self.state, bx,
-                                   by, bz, bc, counts)
+                                   by, bz, bc, counts, self.build_graphs)
         self.steps += bx.shape[0]
         self._steps_since_poll += bx.shape[0]
         if sync:
@@ -754,17 +768,19 @@ class Engine:
             args = self._pooled_args(u, rebuilt, m)
             self.state, img, fstats = self._counted(
                 _fused_chunk_pooled, self.cfg, self.state, width, height, bx,
-                by, bz, bc, counts, *args, self._draw_pool, u)
+                by, bz, bc, counts, *args, self._draw_pool, u,
+                self.build_graphs)
             k = bx.shape[0]
         elif self.stream.chunk_steps == 1:
             self.state, img, fstats = self._counted(
                 _fused_step, self.cfg, self.state, width, height, bx[0], by[0],
-                bz[0], bc[0], int(counts[0]), *self._windows(), u)
+                bz[0], bc[0], int(counts[0]), *self._windows(), u,
+                self.build_graphs)
             k = 1
         else:
             self.state, img, fstats = self._counted(
                 _fused_chunk, self.cfg, self.state, width, height, bx, by, bz,
-                bc, counts, *self._windows(), u)
+                bc, counts, *self._windows(), u, self.build_graphs)
             k = bx.shape[0]
         self.steps += k
         self._steps_since_poll += k

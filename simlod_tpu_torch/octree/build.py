@@ -14,11 +14,17 @@ What changed in the port:
     keys may come out in another order here; only order-defined outputs can
     differ (which exact-duplicate point's colour a voxel keeps, the order of
     points inside a segment), never counts or node tables.
-  - The state is updated in place (scatters, watermark writes into the pools):
-    the JAX version is functional and relies on buffer donation instead.
+  - The state is updated in place (scatters, watermark writes into the pools,
+    `+=` and `copy_` into the 0-d watermarks): the JAX version is functional
+    and relies on buffer donation instead. A state keeps its tensors, so a
+    CUDA graph that reads them stays valid from step to step.
+  - The JAX package jits the step. Here `_build` runs it as six stretches
+    between its device reads, each eagerly (`eager`) or, given a
+    BuildGraphs (octree/graphs.py) on the card, as a CUDA graph replay.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -80,7 +86,8 @@ def route(cfg: EngineConfig, state: OctreeState, x, y, z, rgba, count):
     n_cap = state.child_base.shape[0]
     W = min(cfg.boundary_window, n_cap)
     mx = I32_MAX
-    count = _i32(count, dev)
+    if not isinstance(count, torch.Tensor):
+        count = _i32(count, dev)
 
     qx, qy, qz = morton.quantize_cols(x, y, z, state.box_min, state.cube_size)
     valid = iota(B, dev) < count
@@ -89,8 +96,7 @@ def route(cfg: EngineConfig, state: OctreeState, x, y, z, rgba, count):
     pk1 = torch.where(valid, (w1 << 1) | 1, mx)
 
     # re-sort the boundary window by (key0, key1, pack): splits appended rows
-    state.mem_capacity_reached = state.mem_capacity_reached | \
-        (state.num_boundaries > W)
+    state.mem_capacity_reached |= state.num_boundaries > W
     brow = iota(W, dev)
     bvalid = brow < state.num_boundaries
     bk0 = torch.where(bvalid, state.b_key0[:W], mx)
@@ -160,8 +166,8 @@ def _append_voxels_prefix(cfg: EngineConfig, state: OctreeState, k0, k1, k2l,
                      (state.vox_k2l, k2l), (state.vox_node, src),
                      (state.vox_rgba, rgba)):
         dus(col, val, start)
-    state.vox_used = state.vox_used + n_new
-    state.mem_capacity_reached = state.mem_capacity_reached | (n_emit > room)
+    state.vox_used += n_new
+    state.mem_capacity_reached |= n_emit > room
     return state
 
 
@@ -218,7 +224,7 @@ def _create_children(cfg: EngineConfig, state: OctreeState, tids, tv, n_take):
     scatter_drop(state.anc, anc_idx.reshape(-1), crow.reshape(-1))
     scatter_drop(state.child_base, torch.where(tv, tids.clamp(min=0), n_cap),
                  base)
-    state.num_nodes = state.num_nodes + 8 * n_take
+    state.num_nodes += 8 * n_take
 
     # leaf-boundary directory: append the 8 child boundaries
     clvl = rep(plvl + 1)
@@ -231,8 +237,8 @@ def _create_children(cfg: EngineConfig, state: OctreeState, tids, tv, n_take):
     scatter_drop(state.b_key1, widx, bw1)
     scatter_drop(state.b_pack, widx, bpk)
     nb = state.num_boundaries + 8 * n_take
-    state.mem_capacity_reached = state.mem_capacity_reached | (nb > n_cap)
-    state.num_boundaries = torch.clamp(nb, max=n_cap)
+    state.mem_capacity_reached |= nb > n_cap
+    state.num_boundaries.copy_(torch.clamp(nb, max=n_cap))
     return state, base, cnx, cny, cnz, clvl
 
 
@@ -303,28 +309,87 @@ def _append_leaves(fl, fl_n, FLW, FW, cols, mask):
     return fl_n + fit.sum(dtype=torch.int32), (dv & ~fit).any()
 
 
-def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
-               force_ids=None):
-    """Resolve all splits a batch causes with one stored-point spill (round-1
-    selection, one spill gather + sort, a cascade over a small frontier, then one
-    re-route and segment surgery). Returns (state, work, runs, spill_extra)."""
-    dev = state.device
-    n_cap = state.child_base.shape[0]
-    s_cap = state.seg_node.shape[0]
-    B = work.leaf.shape[0]
+class Select(NamedTuple):
+    """A step's round-1 split selection (biggest stored + batch first)."""
+    ecs_pad: torch.Tensor   # [B + 1] valid rows before each row; the count
+    tv: torch.Tensor        # [K1] taken
+    tids: torch.Tensor      # [K1] taken leaf ids, -1 past n_take1
+    tstart: torch.Tensor    # [K1] their batch rows
+    tend: torch.Tensor
+    n_take1: torch.Tensor
+    spill: torch.Tensor     # bool: the taken leaves store points
+
+
+class Spill(NamedTuple):
+    """The taken leaves' stored points, gathered once and sorted by their
+    full Morton key, with the pack2 keys of both streams."""
+    k0: torch.Tensor        # [SPW]
+    k1: torch.Tensor
+    k2: torch.Tensor
+    goff: torch.Tensor      # pool row
+    rgba: torch.Tensor
+    seg: torch.Tensor       # gathered segment
+    glvl: torch.Tensor      # its node's level
+    n: torch.Tensor         # rows gathered
+    sv: torch.Tensor        # [SS] the gathered segments
+    ssafe: torch.Tensor     # [SS] their directory rows
+    wkeys: torch.Tensor     # [B] pack2 of the working batch's keys
+    skeys: torch.Tensor     # [SPW] ... and of the spill's
+
+
+class Cascade(NamedTuple):
+    """The split cascade: frontier rows still to decide (id, lvl, nx, ny,
+    nz, ws, we, ss, se; [FW] each) and the final leaves (id, lvl, ws, we,
+    ss, se; [FLW] each)."""
+    frontier: tuple
+    leaves: tuple
+    n_leaves: torch.Tensor
+    n_took: torch.Tensor    # splits of the last round
+
+
+class Cand(NamedTuple):
+    """The multi-level voxel emitters: a cnt-descending block of G2W rows,
+    appended round-major (round r emits level lo + r of rows with ecnt > r)."""
+    w0: torch.Tensor
+    w1: torch.Tensor
+    w2: torch.Tensor
+    leaf: torch.Tensor
+    lo: torch.Tensor
+    rgba: torch.Tensor
+    ecnt: torch.Tensor
+    rounds: torch.Tensor    # ecnt.max()
+    dropped: torch.Tensor   # emitters past the block (transient)
+    r: torch.Tensor         # the next round
+
+
+def _split_widths(cfg: EngineConfig):
+    """(K1, CK, FW, FLW, SS, SPW) of the split loop."""
     K1 = cfg.max_splits_per_round
     CK = min(cfg.cascade_splits_per_round, K1)
     FW = 8 * K1
     FLW = 8 * (K1 + CK * cfg.split_rounds) + FW
     SS = cfg.seg_select_cap
-    SPW = ragged.window_for(cfg.spill_capacity, SS)
-    RUNW = 8 * SS
-    valid = work.valid
+    return K1, CK, FW, FLW, SS, ragged.window_for(cfg.spill_capacity, SS)
+
+
+def _frontier_fill(B: int):
+    """Frontier column fills (id, lvl, nx, ny, nz, ws, we, ss, se)."""
+    return (-1, 0, 0, 0, 0, B, B, 0, 0)
+
+
+def _select(cfg: EngineConfig, state: OctreeState, work: Work,
+            force_ids=None) -> Select:
+    """Round-1 selection: over-budget leaf runs, biggest first, within the
+    split, spill, segment and node budgets. With `force_ids` (end-of-load
+    convergence) the overfull ids ride as zero-length runs."""
+    dev = state.device
+    n_cap = state.child_base.shape[0]
+    B = work.leaf.shape[0]
+    K1, _, _, _, SS, _ = _split_widths(cfg)
     mx = I32_MAX
 
     runs = compute_runs(cfg, work)
     if force_ids is not None:
-        # end-of-load convergence: the overfull ids ride as zero-length runs
         KF = force_ids.shape[0]
         nf = (force_ids >= 0).sum(dtype=torch.int32)
         z = torch.zeros(KF, dtype=torch.int32, device=dev)
@@ -333,10 +398,9 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
                     r_row=torch.cat([z, runs.r_row]), n_runs=nf)
     RW = runs.r_leaf.shape[0]
 
-    v32 = valid.to(torch.int32)
+    v32 = work.valid.to(torch.int32)
     ecs_pad = torch.cat([exclusive_cumsum(v32), work.count.reshape(1)])
 
-    # --- round-1 selection, biggest (stored + batch) first ---
     rvalid = iota(RW, dev) < torch.clamp(runs.n_runs, max=RW)
     lsafe = torch.where(rvalid, runs.r_leaf, 0).long()
     counter_r = state.counter[lsafe]
@@ -358,20 +422,40 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
     take_p = (over_p & (rank_p <= K1) & (pts_ex + pts_p <= cfg.spill_capacity)
               & (segs_ex + segs_p <= SS) & node_room)
     n_take1 = take_p.sum(dtype=torch.int32)
-    state.mem_capacity_reached = state.mem_capacity_reached | \
-        (over_p & ~node_room).any()
+    state.mem_capacity_reached |= (over_p & ~node_room).any()
 
     sel_p, _ = compact_indices(take_p)
     tv = iota(K1, dev) < n_take1
     srows = perm[torch.where(tv, torch.clamp(sel_p[:K1], max=RW - 1), 0).long()]
-    tids = torch.where(tv, runs.r_leaf[srows], -1)
-    tsafe = tids.clamp(min=0).long()
-    tstart = torch.where(tv, runs.r_row[srows], B)
-    tend = torch.where(tv, runs.r_row[srows] + runs.r_cnt[srows], B)
     total_spill = torch.where(take_p, pts_p, 0).sum(dtype=torch.int32)
-    has_spill = trace.sync("build.spill", total_spill > 0)
+    return Select(
+        ecs_pad=ecs_pad, tv=tv, tids=torch.where(tv, runs.r_leaf[srows], -1),
+        tstart=torch.where(tv, runs.r_row[srows], B),
+        tend=torch.where(tv, runs.r_row[srows] + runs.r_cnt[srows], B),
+        n_take1=n_take1, spill=total_spill > 0)
 
-    # --- gather the taken nodes' stored points once; sort by full Morton key ---
+
+def _route_select(cfg: EngineConfig, state: OctreeState, x, y, z, rgba, count,
+                  force_ids=None) -> dict:
+    """Stretch: route the batch, then the round-1 selection."""
+    state, work = route(cfg, state, x, y, z, rgba, count)
+    return dict(work=work, sel=_select(cfg, state, work, force_ids))
+
+
+def _gather(cfg: EngineConfig, state: OctreeState, work: Work, sel: Select,
+            has_spill: bool) -> dict:
+    """Stretch: gather the taken nodes' stored points once and sort them by
+    full Morton key (where any are stored), then create the round-1
+    children, which seed the cascade's frontier."""
+    dev = state.device
+    n_cap = state.child_base.shape[0]
+    s_cap = state.seg_node.shape[0]
+    B = work.leaf.shape[0]
+    K1, _, FW, FLW, SS, SPW = _split_widths(cfg)
+    mx = I32_MAX
+    tv, tids = sel.tv, sel.tids
+    tsafe = tids.clamp(min=0).long()
+
     just = torch.zeros(n_cap, dtype=torch.bool, device=dev)
     scatter_drop(just, torch.where(tv, tids.clamp(min=0), n_cap), True)
     if has_spill:
@@ -411,7 +495,7 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
         memflag = torch.zeros((), dtype=torch.bool, device=dev)
         sv = torch.zeros(SS, dtype=torch.bool, device=dev)
         ssafe = torch.zeros(SS, dtype=torch.int32, device=dev)
-    state.mem_capacity_reached = state.mem_capacity_reached | memflag
+    state.mem_capacity_reached |= memflag
 
     # taken nodes' spill intervals (their stored rows, contiguous post-sort)
     tnx, tny, tnz, tlv = (state.nx[tsafe], state.ny[tsafe], state.nz[tsafe],
@@ -427,71 +511,99 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
 
     # --- create round-1 children; they seed the frontier ---
     state, base1, cnx1, cny1, cnz1, clvl1 = _create_children(
-        cfg, state, tids, tv, n_take1)
+        cfg, state, tids, tv, sel.n_take1)
     seed = _child_rows(wkeys, skeys, tv, base1, cnx1, cny1, cnz1, clvl1,
-                       tstart, tend, tss, tse, B)
-    defaults = (-1, 0, 0, 0, 0, B, B, 0, 0)
-    frontier = tuple(_pad_to(a, FW, f) for a, f in zip(seed, defaults))
+                       sel.tstart, sel.tend, tss, tse, B)
+    frontier = tuple(_pad_to(a, FW, f)
+                     for a, f in zip(seed, _frontier_fill(B)))
     # final leaves: id, lvl, ws, we, ss, se
-    fl = tuple(torch.zeros(FLW, dtype=torch.int32, device=dev) for _ in range(6))
-    fl_n = _i32(0, dev)
-
+    fl = tuple(torch.zeros(FLW, dtype=torch.int32, device=dev)
+               for _ in range(6))
+    spill = Spill(k0=sk0, k1=sk1, k2=sk2, goff=sgoff, rgba=srgba, seg=sseg,
+                  glvl=sglvl, n=n_spill, sv=sv, ssafe=ssafe, wkeys=wkeys,
+                  skeys=skeys)
     # the cascade runs while the previous round split something (the JAX
     # loop carries n_take in its n_alive slot)
-    n_took, rounds = n_take1, 0
-    while rounds < cfg.split_rounds \
-            and trace.sync("build.split_round", n_took) > 0:
-        c_id, c_lvl, c_nx, c_ny, c_nz, c_ws, c_we, c_ss, c_se = frontier
-        alive = c_id >= 0
-        wcnt = ecs_pad[c_we.clamp(0, B).long()] - ecs_pad[c_ws.clamp(0, B).long()]
-        scnt2 = c_se - c_ss
-        overc = alive & (wcnt + scnt2 > cfg.max_points_per_node) \
-            & (c_lvl < cfg.max_depth)
-        rank = cumsum32(overc.to(torch.int32))
-        room = (state.num_nodes + 8 * rank) <= n_cap
-        takec = overc & (rank <= CK) & room
-        n_take = takec.sum(dtype=torch.int32)
-        state.mem_capacity_reached = state.mem_capacity_reached | \
-            (overc & ~room).any()
+    return dict(spill=spill, casc=Cascade(frontier=frontier, leaves=fl,
+                                          n_leaves=_i32(0, dev),
+                                          n_took=sel.n_take1))
 
-        ct, _ = compact_mask_via_sort(takec, frontier)
-        ct_id, ct_lvl, ct_nx, ct_ny, ct_nz, ct_ws, ct_we, ct_ss, ct_se = ct
-        ctv = iota(CK, dev) < n_take
-        sl = lambda a, f: torch.where(ctv, a[:CK], f)
-        ct_id = sl(ct_id, -1)
-        ct_ws, ct_we = sl(ct_ws, B), sl(ct_we, B)
-        ct_ss, ct_se = sl(ct_ss, 0), sl(ct_se, 0)
 
-        state, baseC, cnxC, cnyC, cnzC, clvlC = _create_children(
-            cfg, state, ct_id, ctv, n_take)
-        rows = _child_rows(wkeys, skeys, ctv, baseC, cnxC, cnyC, cnzC, clvlC,
-                           ct_ws, ct_we, ct_ss, ct_se, B)
+def _cascade_round(cfg: EngineConfig, state: OctreeState, work: Work,
+                   sel: Select, spill: Spill, casc: Cascade) -> dict:
+    """Stretch: one cascade round over the frontier. Rows over the budget
+    split (at most CK of them) or wait for the next round; the rest are
+    final leaves."""
+    dev = state.device
+    n_cap = state.child_base.shape[0]
+    B = work.leaf.shape[0]
+    _, CK, FW, FLW, _, _ = _split_widths(cfg)
+    ecs_pad, frontier = sel.ecs_pad, casc.frontier
+    c_id, c_lvl, c_nx, c_ny, c_nz, c_ws, c_we, c_ss, c_se = frontier
+    alive = c_id >= 0
+    wcnt = ecs_pad[c_we.clamp(0, B).long()] - ecs_pad[c_ws.clamp(0, B).long()]
+    scnt2 = c_se - c_ss
+    overc = alive & (wcnt + scnt2 > cfg.max_points_per_node) \
+        & (c_lvl < cfg.max_depth)
+    rank = cumsum32(overc.to(torch.int32))
+    room = (state.num_nodes + 8 * rank) <= n_cap
+    takec = overc & (rank <= CK) & room
+    n_take = takec.sum(dtype=torch.int32)
+    state.mem_capacity_reached |= (overc & ~room).any()
 
-        # frontier rows that are not over capacity are decided: leaves
-        fl_n, lost = _append_leaves(fl, fl_n, FLW, FW,
-                                    (c_id, c_lvl, c_ws, c_we, c_ss, c_se),
-                                    alive & ~overc)
-        state.mem_capacity_reached = state.mem_capacity_reached | lost
+    ct, _ = compact_mask_via_sort(takec, frontier)
+    ct_id, ct_lvl, ct_nx, ct_ny, ct_nz, ct_ws, ct_we, ct_ss, ct_se = ct
+    ctv = iota(CK, dev) < n_take
+    sl = lambda a, f: torch.where(ctv, a[:CK], f)
+    ct_id = sl(ct_id, -1)
+    ct_ws, ct_we = sl(ct_ws, B), sl(ct_we, B)
+    ct_ss, ct_se = sl(ct_ss, 0), sl(ct_se, 0)
 
-        # next frontier = retained over-budget rows ++ the new children
-        kept, n_keep = compact_mask_via_sort(overc & ~takec, frontier)
-        kv = iota(FW, dev) < n_keep
-        cat = tuple(torch.cat([torch.where(kv, k[:FW], f), r])
-                    for k, r, f in zip(kept, rows, defaults))
-        cat_c, n_alive = compact_mask_via_sort(cat[0] >= 0, cat)
-        state.mem_capacity_reached = state.mem_capacity_reached | (n_alive > FW)
-        frontier = tuple(a[:FW] for a in cat_c)
-        n_took = n_take
-        rounds += 1
+    state, baseC, cnxC, cnyC, cnzC, clvlC = _create_children(
+        cfg, state, ct_id, ctv, n_take)
+    rows = _child_rows(spill.wkeys, spill.skeys, ctv, baseC, cnxC, cnyC, cnzC,
+                       clvlC, ct_ws, ct_we, ct_ss, ct_se, B)
 
-    # remaining frontier rows (loop exhausted) are leaves as well
-    c_id, c_lvl, _, _, _, c_ws, c_we, c_ss, c_se = frontier
-    fl_n, lost = _append_leaves(fl, fl_n, FLW, FW,
-                                (c_id, c_lvl, c_ws, c_we, c_ss, c_se), c_id >= 0)
-    state.mem_capacity_reached = state.mem_capacity_reached | lost
+    # frontier rows that are not over capacity are decided: leaves
+    fl_n, lost = _append_leaves(casc.leaves, casc.n_leaves, FLW, FW,
+                                (c_id, c_lvl, c_ws, c_we, c_ss, c_se),
+                                alive & ~overc)
+    state.mem_capacity_reached |= lost
+
+    # next frontier = retained over-budget rows ++ the new children
+    kept, n_keep = compact_mask_via_sort(overc & ~takec, frontier)
+    kv = iota(FW, dev) < n_keep
+    cat = tuple(torch.cat([torch.where(kv, k[:FW], f), r])
+                for k, r, f in zip(kept, rows, _frontier_fill(B)))
+    cat_c, n_alive = compact_mask_via_sort(cat[0] >= 0, cat)
+    state.mem_capacity_reached |= n_alive > FW
+    return dict(casc=Cascade(frontier=tuple(a[:FW] for a in cat_c),
+                             leaves=casc.leaves, n_leaves=fl_n,
+                             n_took=n_take))
+
+
+def _leaves(cfg: EngineConfig, state: OctreeState, work: Work, sel: Select,
+            spill: Spill, casc: Cascade, has_spill: bool) -> dict:
+    """Stretch: the frontier rows left when the cascade ends are leaves as
+    well; re-route both streams to the final leaves (one disjoint interval
+    scatter + cumsum each), subdivide the stored segments straight to final
+    depth (where any were spilled), and emit the voxel candidates up to the
+    multi-level rounds."""
+    dev = state.device
+    n_cap = state.child_base.shape[0]
+    s_cap = state.seg_node.shape[0]
+    B = work.leaf.shape[0]
+    _, _, FW, FLW, SS, SPW = _split_widths(cfg)
+    RUNW = 8 * SS
+
+    c_id, c_lvl, _, _, _, c_ws, c_we, c_ss, c_se = casc.frontier
+    fl_n, lost = _append_leaves(casc.leaves, casc.n_leaves, FLW, FW,
+                                (c_id, c_lvl, c_ws, c_we, c_ss, c_se),
+                                c_id >= 0)
+    state.mem_capacity_reached |= lost
 
     # --- final re-route: one disjoint interval-scatter + cumsum per stream ---
-    fl_id, fl_lvl, fl_ws, fl_we, fl_ss, fl_se = fl
+    fl_id, fl_lvl, fl_ws, fl_we, fl_ss, fl_se = casc.leaves
     flv = iota(FLW, dev) < fl_n
     pk = torch.where(flv, fl_id * 32 + fl_lvl + 1, 0)
 
@@ -508,6 +620,7 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
     work = work._replace(leaf=new_leaf, lvl=new_lvl)
     runs = compute_runs(cfg, work)
 
+    n_spill = spill.n
     cum_s = reroute(SPW, fl_ss, fl_se)
     srow = iota(SPW, dev)
     svalid = srow < n_spill
@@ -515,17 +628,18 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
     s_flvl = torch.where(cum_s > 0, (cum_s - 1) & 31, 0)
 
     # --- spilled rows join the voxel-candidate emission ---
-    sqx, sqy, sqz = morton.decode(sk0, sk1, sk2)
+    sqx, sqy, sqz = morton.decode(spill.k0, spill.k1, spill.k2)
     prev_ok = svalid & roll1(svalid) & (srow > 0)
-    s_lo = torch.maximum(_common_prefix_lo(sqx, sqy, sqz, prev_ok), sglvl)
+    s_lo = torch.maximum(_common_prefix_lo(sqx, sqy, sqz, prev_ok), spill.glvl)
     s_cnt = torch.where(svalid, torch.clamp(s_flvl - s_lo, min=0), 0)
-    spill_extra = (sk0, sk1, sk2, s_leaf, srgba, s_lo, s_cnt)
+    spill_extra = (spill.k0, spill.k1, spill.k2, s_leaf, spill.rgba, s_lo,
+                   s_cnt)
 
     # --- segment surgery: subdivide stored segments straight to final depth ---
     if has_spill:
-        skey = torch.where(svalid, sseg, SS)
-        order = lexsort((skey, s_leaf, sgoff))
-        o_seg, o_leaf, o_goff = skey[order], s_leaf[order], sgoff[order]
+        skey = torch.where(svalid, spill.seg, SS)
+        order = lexsort((skey, s_leaf, spill.goff))
+        o_seg, o_leaf, o_goff = skey[order], s_leaf[order], spill.goff[order]
         starts = svalid & ((o_seg != roll1(o_seg)) | (o_leaf != roll1(o_leaf))
                            | (srow == 0))
         pos_f, n_runs_all = compact_indices(starts)
@@ -544,9 +658,8 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
         scatter_drop(state.seg_off, widx2, r_goff)
         scatter_drop(state.seg_cnt, widx2, r_len)
         n_runs = fit2.sum(dtype=torch.int32)
-        state.num_segments = state.num_segments + n_runs
-        state.mem_capacity_reached = state.mem_capacity_reached | \
-            (n_runs_all > n_runs)
+        state.num_segments += n_runs
+        state.mem_capacity_reached |= n_runs_all > n_runs
         # inherited counts: final leaves take over the stored points they own
         addi = torch.where(fit2, r_leaf, n_cap)
         addv = torch.where(fit2, r_len, 0)
@@ -555,19 +668,21 @@ def split_loop(cfg: EngineConfig, state: OctreeState, work: Work,
         scatter_drop(state.node_seg_count, addi, fit2.to(torch.int32),
                      accumulate=True)
         # kill the split nodes' old segments; zero their stored-point counts
-        scatter_drop(state.seg_cnt, torch.where(sv, ssafe, s_cap), 0)
-        tkill = torch.where(tv, tids.clamp(min=0), n_cap)
+        scatter_drop(state.seg_cnt, torch.where(spill.sv, spill.ssafe, s_cap),
+                     0)
+        tkill = torch.where(sel.tv, sel.tids.clamp(min=0), n_cap)
         scatter_drop(state.num_points, tkill, 0)
         scatter_drop(state.node_seg_count, tkill, 0)
-    return state, work, runs, spill_extra
+    return dict(work=work, runs=runs,
+                cand=_candidates(cfg, state, work, spill_extra))
 
 
-def batch_voxel_candidates(cfg: EngineConfig, state: OctreeState, work: Work,
-                           spill_extra=None):
+def _candidates(cfg: EngineConfig, state: OctreeState, work: Work,
+                spill_extra) -> Cand:
     """Emit the first-in-cell voxel candidates for every inner ancestor level
     (a point's first-in-cell levels form the contiguous range [lo, leaf level)).
-    Single-level emitters append in place; multi-level emitters append round-
-    major from a cnt-descending block of G2W rows."""
+    Single-level emitters append in place here; multi-level emitters come
+    back as the block that _cand_round appends round-major."""
     dev = state.device
     B = work.leaf.shape[0]
     rowi = iota(B, dev)
@@ -578,18 +693,14 @@ def batch_voxel_candidates(cfg: EngineConfig, state: OctreeState, work: Work,
     lo = _common_prefix_lo(work.qx, work.qy, work.qz, prev_ok)
     cnt = torch.where(valid, torch.clamp(nlev - lo, min=0), 0)
 
-    rgba_i = work.rgba
-    w0, w1, w2 = work.w0, work.w1, work.w2
-    leaf = work.leaf
-    if spill_extra is not None:
-        xw0, xw1, xw2, xleaf, xrgba, xlo, xcnt = spill_extra
-        w0 = torch.cat([w0, xw0])
-        w1 = torch.cat([w1, xw1])
-        w2 = torch.cat([w2, xw2])
-        leaf = torch.cat([leaf, xleaf])
-        rgba_i = torch.cat([rgba_i, xrgba])
-        lo = torch.cat([lo, xlo])
-        cnt = torch.cat([cnt, xcnt])
+    xw0, xw1, xw2, xleaf, xrgba, xlo, xcnt = spill_extra
+    w0 = torch.cat([work.w0, xw0])
+    w1 = torch.cat([work.w1, xw1])
+    w2 = torch.cat([work.w2, xw2])
+    leaf = torch.cat([work.leaf, xleaf])
+    rgba_i = torch.cat([work.rgba, xrgba])
+    lo = torch.cat([lo, xlo])
+    cnt = torch.cat([cnt, xcnt])
     W2 = w0.shape[0]
 
     cls = torch.where(cnt == 1, 0, torch.where(cnt >= 2, 1, 2)).to(torch.int32)
@@ -619,31 +730,85 @@ def batch_voxel_candidates(cfg: EngineConfig, state: OctreeState, work: Work,
     state = _append_voxels_prefix(cfg, state, k0, k1, k2l, sleaf, srgba,
                                   n_single)
 
-    # --- multi-level emitters: round-major prefix appends ---
+    # --- multi-level emitters: a block of G2W rows after the single ones ---
     G2W = min(W2, cfg.cand_multi_rows or max(W2 // 4, 1024))
     grow = iota(G2W, dev)
     blk = (n_single.to(torch.int64) + torch.arange(G2W, device=dev))
     pz = lambda a: torch.cat([a, torch.zeros(G2W, dtype=a.dtype, device=dev)])
     ds = lambda a: pz(a)[blk]
-    mw0, mw1, mw2 = ds(sw0), ds(sw1), ds(sw2)
-    mleaf, mlo, mrgba = ds(sleaf), ds(slo), ds(srgba)
     ecnt = torch.where(grow < n_multi, ds(scnt), 0)
     total2 = ecnt.sum(dtype=torch.int32)
-    for r in range(trace.sync("build.cand_rounds", ecnt.max())):
-        k_r = (ecnt > r).sum(dtype=torch.int32)
-        ek0, ek1, ek2l = morton.key_words_at_level(mw0, mw1, mw2, mlo + r)
-        room = torch.clamp(cfg.voxel_capacity - state.vox_used, min=0)
-        n_new = torch.minimum(k_r, room)
-        for col, val in ((state.vox_k0, ek0), (state.vox_k1, ek1),
-                         (state.vox_k2l, ek2l), (state.vox_node, mleaf),
-                         (state.vox_rgba, mrgba)):
-            dus(col, val, state.vox_used)
-        state.vox_used = state.vox_used + n_new
-        state.mem_capacity_reached = state.mem_capacity_reached | (k_r > room)
-
     # overflow (multi rows past the G2W block window) is transient
-    state.num_candidates_dropped = state.num_candidates_dropped + \
-        torch.clamp(total - n_single - total2, min=0)
+    return Cand(w0=ds(sw0), w1=ds(sw1), w2=ds(sw2), leaf=ds(sleaf),
+                lo=ds(slo), rgba=ds(srgba), ecnt=ecnt, rounds=ecnt.max(),
+                dropped=torch.clamp(total - n_single - total2, min=0),
+                r=_i32(0, dev))
+
+
+def _cand_round(cfg: EngineConfig, state: OctreeState, cand: Cand) -> dict:
+    """Stretch: one multi-level candidate round, a prefix append of the
+    block's rows with ecnt > r at level lo + r."""
+    r = cand.r
+    k_r = (cand.ecnt > r).sum(dtype=torch.int32)
+    ek0, ek1, ek2l = morton.key_words_at_level(cand.w0, cand.w1, cand.w2,
+                                               cand.lo + r)
+    room = torch.clamp(cfg.voxel_capacity - state.vox_used, min=0)
+    n_new = torch.minimum(k_r, room)
+    for col, val in ((state.vox_k0, ek0), (state.vox_k1, ek1),
+                     (state.vox_k2l, ek2l), (state.vox_node, cand.leaf),
+                     (state.vox_rgba, cand.rgba)):
+        dus(col, val, state.vox_used)
+    state.vox_used += n_new
+    state.mem_capacity_reached |= k_r > room
+    return dict(cand=cand._replace(r=r + 1))
+
+
+def _insert(cfg: EngineConfig, state: OctreeState, work: Work, runs: Runs,
+            cand: Cand) -> dict:
+    """Stretch: count the dropped candidates, then insert the batch."""
+    state.num_candidates_dropped += cand.dropped
+    insert_points(cfg, state, work, runs)
+    return {}
+
+
+def eager(stretch: str, branch, fn, *args):
+    """Run a stretch of the step (see _build) as it stands: the path of
+    every state a BuildGraphs does not take."""
+    with trace.span("build.eager"):
+        return fn(*args)
+
+
+def _build(cfg: EngineConfig, state: OctreeState, run, x, y, z, rgba, count,
+           force_ids=None, phase=trace.span) -> OctreeState:
+    """The build step as stretches between its device reads: `run(stretch,
+    branch, fn, *args)` runs each (`eager`, or a BuildGraphs' replay) and
+    returns fn's {role: value}. The reads: whether the round-1 splits spill
+    stored points (which picks the gather's and the leaves' branch), whether
+    the last cascade round split anything, and how many multi-level
+    candidate rounds there are."""
+    with phase("build.route"):
+        s = run("route", None, _route_select, cfg, state, x, y, z, rgba,
+                count, force_ids)
+    work, sel = s["work"], s["sel"]
+    with phase("build.split"):
+        has_spill = trace.sync("build.spill", sel.spill)
+        s = run("gather", has_spill, _gather, cfg, state, work, sel, has_spill)
+        spill, casc = s["spill"], s["casc"]
+        rounds = 0
+        while rounds < cfg.split_rounds \
+                and trace.sync("build.split_round", casc.n_took) > 0:
+            casc = run("round", None, _cascade_round, cfg, state, work, sel,
+                       spill, casc)["casc"]
+            rounds += 1
+    with phase("build.voxels"):
+        s = run("leaves", has_spill, _leaves, cfg, state, work, sel, spill,
+                casc, has_spill)
+        work, runs, cand = s["work"], s["runs"], s["cand"]
+        for _ in range(trace.sync("build.cand_rounds", cand.rounds)):
+            cand = run("cand_round", None, _cand_round, cfg, state,
+                       cand)["cand"]
+    with phase("build.insert"):
+        run("insert", None, _insert, cfg, state, work, runs, cand)
     return state
 
 
@@ -659,14 +824,14 @@ def insert_points(cfg: EngineConfig, state: OctreeState, work: Work, runs: Runs)
     span = torch.where(rv0, runs.r_row + runs.r_cnt, 0).max()
     room = torch.clamp(cfg.point_capacity - state.pool_used, min=0)
     new_span = torch.minimum(span, room)
-    state.mem_capacity_reached = state.mem_capacity_reached | (span > room)
+    state.mem_capacity_reached |= span > room
 
     for col, val in ((state.pt_w0, work.w0), (state.pt_w1, work.w1),
                      (state.pt_w2, work.w2), (state.pt_rgba, work.rgba)):
         dus(col, val, state.pool_used)
 
     n_runs = torch.clamp(runs.n_runs, max=RW)
-    state.mem_capacity_reached = state.mem_capacity_reached | (runs.n_runs > RW)
+    state.mem_capacity_reached |= runs.n_runs > RW
     r_start = torch.minimum(runs.r_row, new_span)
     r_end = torch.minimum(runs.r_row + runs.r_cnt, new_span)
     r_cnt = torch.clamp(r_end - r_start, min=0)
@@ -678,9 +843,8 @@ def insert_points(cfg: EngineConfig, state: OctreeState, work: Work, runs: Runs)
     scatter_drop(state.seg_node, sidx, runs.r_leaf)
     scatter_drop(state.seg_off, sidx, state.pool_used + r_start)
     scatter_drop(state.seg_cnt, sidx, r_cnt)
-    state.num_segments = state.num_segments + fit.sum(dtype=torch.int32)
-    state.mem_capacity_reached = state.mem_capacity_reached | \
-        (rvalid & ~fit).any()
+    state.num_segments += fit.sum(dtype=torch.int32)
+    state.mem_capacity_reached |= (rvalid & ~fit).any()
 
     addi = torch.where(fit, runs.r_leaf, n_cap)
     addv = torch.where(fit, r_cnt, 0)
@@ -690,38 +854,40 @@ def insert_points(cfg: EngineConfig, state: OctreeState, work: Work, runs: Runs)
                  accumulate=True)
 
     stored = torch.where(fit, r_cnt, 0).sum(dtype=torch.int32)
-    state.pool_used = state.pool_used + new_span
-    state.pool_waste = state.pool_waste + (new_span - stored)
-    state.num_points_processed = state.num_points_processed + stored
-    state.num_points_dropped = state.num_points_dropped + (work.count - stored)
+    state.pool_used += new_span
+    state.pool_waste += new_span - stored
+    state.num_points_processed += stored
+    state.num_points_dropped += work.count - stored
     return state
 
 
 def build_step(cfg: EngineConfig, state: OctreeState, x, y, z, rgba,
-               count) -> OctreeState:
+               count, graphs=None) -> OctreeState:
     """Ingest one batch: route -> split loop -> voxel sampling -> insert.
     x/y/z are f32 columns and rgba an int32 (u32 bit pattern) column, all of the
-    same width on the state's device; `count` is the number of valid rows."""
+    same width on the state's device; `count` is the number of valid rows.
+    With `graphs` (a BuildGraphs) on a state it takes, the step's stretches
+    replay as CUDA graphs; otherwise they run eagerly."""
     with trace.span("build.step"):
-        with trace.span("build.route"):
-            state, work = route(cfg, state, x, y, z, rgba, count)
-        with trace.span("build.split"):
-            state, work, runs, spill_extra = split_loop(cfg, state, work)
-        with trace.span("build.voxels"):
-            state = batch_voxel_candidates(cfg, state, work, spill_extra)
-        with trace.span("build.insert"):
-            return insert_points(cfg, state, work, runs)
+        if graphs is not None and graphs.applies(state):
+            run, (x, y, z, rgba, count) = graphs.step(cfg, state, x, y, z,
+                                                      rgba, count)
+        else:
+            run = eager
+        return _build(cfg, state, run, x, y, z, rgba, count)
 
 
 def build_many(cfg: EngineConfig, state: OctreeState, x_batches, y_batches,
-               z_batches, rgba_batches, counts) -> OctreeState:
+               z_batches, rgba_batches, counts, graphs=None) -> OctreeState:
     """Ingest K batches ([K, B] planes, `counts` host ints) in order, compacting
-    the voxel store whenever it crosses the compaction watermark."""
+    the voxel store whenever it crosses the compaction watermark. `graphs`
+    as in build_step."""
     wm = int(cfg.voxel_capacity * cfg.voxel_compact_watermark)
     with trace.span("build.many"):
         for k in range(x_batches.shape[0]):
             state = build_step(cfg, state, x_batches[k], y_batches[k],
-                               z_batches[k], rgba_batches[k], int(counts[k]))
+                               z_batches[k], rgba_batches[k], int(counts[k]),
+                               graphs)
             used = trace.sync("build.vox_used", state.vox_used)
             if used > wm:
                 state = compact_voxels_auto(cfg, state, used=used)
@@ -755,11 +921,8 @@ def split_finish(cfg: EngineConfig, state: OctreeState,
     dev = state.device
     zf = torch.zeros(_FINISH_B, dtype=torch.float32, device=dev)
     zc = torch.zeros(_FINISH_B, dtype=torch.int32, device=dev)
-    state, work = route(cfg, state, zf, zf, zf, zc, 0)
-    state, work, runs, spill_extra = split_loop(cfg, state, work,
-                                                force_ids=force_ids)
-    state = batch_voxel_candidates(cfg, state, work, spill_extra)
-    return insert_points(cfg, state, work, runs)
+    return _build(cfg, state, eager, zf, zf, zf, zc, 0, force_ids,
+                  phase=contextlib.nullcontext)
 
 
 def _compact_voxels_core(cfg: EngineConfig, state: OctreeState,
@@ -835,15 +998,14 @@ def _compact_voxels_core(cfg: EngineConfig, state: OctreeState,
     state.vox_k2l[:w] = torch.where(cvalid, ck2l, zero)
     state.vox_node[:w] = torch.where(cvalid, cnode, zero)
     state.vox_rgba[:w] = torch.where(cvalid, crgba, zero)
-    state.vox_used = n_uniq
-    state.vox_compacted = n_uniq.clone()
+    state.vox_used.copy_(n_uniq)
+    state.vox_compacted.copy_(n_uniq)
 
     nidx = torch.where(gok, g_node, n_cap)
-    zn = lambda: torch.zeros(n_cap, dtype=torch.int32, device=dev)
-    state.vox_voff = scatter_drop(zn(), nidx, g_row)
-    state.vox_vcnt = scatter_drop(zn(), nidx, g_len)
-    state.num_voxels = scatter_drop(zn(), nidx, g_len)
-    state.mem_capacity_reached = state.mem_capacity_reached | (n_groups > NW)
+    scatter_drop(state.vox_voff.zero_(), nidx, g_row)
+    scatter_drop(state.vox_vcnt.zero_(), nidx, g_len)
+    scatter_drop(state.num_voxels.zero_(), nidx, g_len)
+    state.mem_capacity_reached |= n_groups > NW
     return state
 
 
@@ -872,8 +1034,8 @@ def compact_segments(cfg: EngineConfig, state: OctreeState) -> OctreeState:
         (n, o, c), n_alive = compact_mask_via_sort(
             alive, (state.seg_node, state.seg_off, state.seg_cnt))
         keep = rows < n_alive
-        state.seg_node = torch.where(keep, n, -1)
-        state.seg_off = torch.where(keep, o, 0)
-        state.seg_cnt = torch.where(keep, c, 0)
-        state.num_segments = n_alive
+        state.seg_node.copy_(torch.where(keep, n, -1))
+        state.seg_off.copy_(torch.where(keep, o, 0))
+        state.seg_cnt.copy_(torch.where(keep, c, 0))
+        state.num_segments.copy_(n_alive)
         return state

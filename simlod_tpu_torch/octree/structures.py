@@ -104,55 +104,85 @@ class OctreeState:
         return torch.stack(self.pt_positions(), dim=-1)
 
 
+def _columns(cfg: EngineConfig) -> dict:
+    """{field: (shape, dtype, initial value)} of every field but the
+    octree domain (box_min, cube_size): the one description init_state and
+    reset_state build from. Every tensor is filled on the device: a copy
+    from the host would wait for the device."""
+    n_cap = cfg.node_capacity
+    rnd = lambda v, m: ((v + m - 1) // m) * m
+    p_cap = rnd(cfg.point_capacity + cfg.working_capacity, 128)
+    v_cap = rnd(cfg.voxel_capacity + _cand_capacity(cfg), 128)
+    s_cap = cfg.segment_capacity
+    i32 = torch.int32
+    col = lambda n, v=0: ((n,), i32, v)
+    scalar = lambda v=0: ((), i32, v)
+    return dict(
+        child_base=col(n_cap, -1), parent=col(n_cap, -1), level=col(n_cap),
+        nx=col(n_cap), ny=col(n_cap), nz=col(n_cap),
+        counter=col(n_cap), num_points=col(n_cap), num_voxels=col(n_cap),
+        node_seg_count=col(n_cap),
+        anc=col(n_cap * (C.MAX_DEPTH + 1)),
+        num_nodes=scalar(1),
+        b_key0=col(n_cap), b_key1=col(n_cap), b_pack=col(n_cap),
+        num_boundaries=scalar(1),   # the root leaf (keys 0,0; pack 0)
+        pt_w0=col(p_cap), pt_w1=col(p_cap), pt_w2=col(p_cap),
+        pt_rgba=col(p_cap),
+        pool_used=scalar(), pool_waste=scalar(),
+        seg_node=col(s_cap, -1), seg_off=col(s_cap), seg_cnt=col(s_cap),
+        num_segments=scalar(),
+        vox_k0=col(v_cap), vox_k1=col(v_cap), vox_k2l=col(v_cap),
+        vox_node=col(v_cap), vox_rgba=col(v_cap),
+        vox_used=scalar(), vox_compacted=scalar(),
+        vox_voff=col(n_cap), vox_vcnt=col(n_cap),
+        num_points_processed=scalar(), num_points_dropped=scalar(),
+        num_candidates_dropped=scalar(),
+        mem_capacity_reached=((), torch.bool, False),
+    )
+
+
+def _domain(box_min, box_max, device):
+    """(box_min f32 [3], cube_size f32 scalar) on `device`: the cube with
+    edge max(extent) anchored at box_min. Filled on the device: a copy from
+    the host would wait for the device."""
+    box = lambda b: torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                            device=device)
+                                 for v in np.asarray(b, np.float32)])
+    lo, hi = box(box_min), box(box_max)
+    return lo, torch.max(hi - lo)
+
+
 def init_state(cfg: EngineConfig, box_min, box_max, device=None) -> OctreeState:
     """Create the initial single-root state (the reference's reset.cu kernel).
 
     The octree domain is the cube with edge max(extent) anchored at box_min.
     The tensors go to `device`, the card unless another is named."""
     device = resolve_device(device, "init_state")
-    n_cap = cfg.node_capacity
-    rnd = lambda v, m: ((v + m - 1) // m) * m
-    p_cap = rnd(cfg.point_capacity + cfg.working_capacity, 128)
-    v_cap = rnd(cfg.voxel_capacity + _cand_capacity(cfg), 128)
+    cols = {name: torch.full(shape, v, dtype=dtype, device=device)
+            for name, (shape, dtype, v) in _columns(cfg).items()}
+    lo, cube = _domain(box_min, box_max, device)
+    return OctreeState(**cols, box_min=lo, cube_size=cube)
 
-    # every tensor is filled on the device: a copy from the host would wait
-    # for the device
-    box = lambda b: torch.stack([torch.full((), float(v), dtype=torch.float32,
-                                            device=device)
-                                 for v in np.asarray(b, np.float32)])
-    box_min, box_max = box(box_min), box(box_max)
-    cube_size = torch.max(box_max - box_min)
 
-    i32 = torch.int32
-    zeros = lambda n: torch.zeros((n,), dtype=i32, device=device)
-    neg = lambda n: torch.full((n,), -1, dtype=i32, device=device)
-    scalar = lambda v: torch.full((), v, dtype=i32, device=device)
-
-    return OctreeState(
-        child_base=neg(n_cap), parent=neg(n_cap), level=zeros(n_cap),
-        nx=zeros(n_cap), ny=zeros(n_cap), nz=zeros(n_cap),
-        counter=zeros(n_cap), num_points=zeros(n_cap), num_voxels=zeros(n_cap),
-        node_seg_count=zeros(n_cap),
-        anc=zeros(n_cap * (C.MAX_DEPTH + 1)),
-        num_nodes=scalar(1),
-        b_key0=zeros(n_cap), b_key1=zeros(n_cap), b_pack=zeros(n_cap),
-        num_boundaries=scalar(1),   # the root leaf (keys 0,0; pack 0)
-        pt_w0=zeros(p_cap), pt_w1=zeros(p_cap), pt_w2=zeros(p_cap),
-        pt_rgba=zeros(p_cap),
-        pool_used=scalar(0), pool_waste=scalar(0),
-        seg_node=neg(cfg.segment_capacity),
-        seg_off=zeros(cfg.segment_capacity),
-        seg_cnt=zeros(cfg.segment_capacity),
-        num_segments=scalar(0),
-        vox_k0=zeros(v_cap), vox_k1=zeros(v_cap), vox_k2l=zeros(v_cap),
-        vox_node=zeros(v_cap), vox_rgba=zeros(v_cap),
-        vox_used=scalar(0), vox_compacted=scalar(0),
-        vox_voff=zeros(n_cap), vox_vcnt=zeros(n_cap),
-        box_min=box_min, cube_size=cube_size,
-        num_points_processed=scalar(0), num_points_dropped=scalar(0),
-        num_candidates_dropped=scalar(0),
-        mem_capacity_reached=torch.zeros((), dtype=torch.bool, device=device),
-    )
+def reset_state(state: OctreeState, cfg: EngineConfig, box_min,
+                box_max) -> bool:
+    """Re-initialise `state` in place to what init_state(cfg, box_min,
+    box_max, state.device) makes, keeping every tensor (and its pointer: a
+    CUDA graph that reads the state stays valid). Returns False, and writes
+    nothing, where a field's shape or dtype differs from cfg's."""
+    cols = _columns(cfg)
+    for name, (shape, dtype, _) in cols.items():
+        t = getattr(state, name)
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            return False
+    if state.box_min.shape != (3,) or state.cube_size.shape != ():
+        return False
+    for name, (_, _, v) in cols.items():
+        getattr(state, name).fill_(v)
+    lo, cube = _domain(box_min, box_max, state.device)
+    state.box_min.copy_(lo)
+    state.cube_size.copy_(cube)
+    return True
 
 
 def node_min_size(state: OctreeState, ids=None):

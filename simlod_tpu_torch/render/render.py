@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import NamedTuple
 
@@ -284,21 +285,38 @@ def capture_cuda_graph(span, device) -> CapturedFrame:
 
     First use happens outside the capture: one eager run of the span on a
     side stream, as torch.cuda.graph asks, builds the kernel library, asks
-    for the cooperative grids and makes the device constants. The capture
-    runs on a stream of its own in thread-local mode (the stream's loader
-    threads may copy meanwhile) and takes a private memory pool. A capture
-    launches nothing, so the wrappers' counts are set back to what they
-    were; a replay adds them. An error raises: nothing runs the eager span
-    in the graph's place."""
+    for the cooperative grids and makes the device constants. Then
+    record_cuda_graph. An error raises: nothing runs the eager span in the
+    graph's place."""
     with torch.cuda.device(device):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             span()
+        torch.cuda.current_stream().wait_stream(side)
+    return record_cuda_graph(span, device)
+
+
+def record_cuda_graph(span, device, pool=None) -> CapturedFrame:
+    """Record `span()` as a CUDA graph on `device` without running it (a
+    span whose first use has happened). The recording runs on a stream of
+    its own in thread-local mode (the stream's loader threads may copy
+    meanwhile), in `pool` (torch.cuda.graph_pool_handle: a memory pool
+    shared with graphs that never run at the same time as this one) or
+    else a private pool. A recording launches nothing, so the wrappers'
+    counts are set back to what they were; a replay adds them. The cyclic
+    garbage collector waits while it records: a collection could free
+    another graph, which CUDA forbids while a stream captures."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
             fns = _launch_counters()
             before = [f.launches for f in fns]
             graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(capture_error_mode="thread_local")
+            collecting = gc.isenabled()
+            gc.disable()
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 outputs = span()
             except BaseException:
@@ -310,6 +328,8 @@ def capture_cuda_graph(span, device) -> CapturedFrame:
             else:
                 graph.capture_end()
             finally:
+                if collecting:
+                    gc.enable()
                 made = [f.launches - b for f, b in zip(fns, before)]
                 for f, b in zip(fns, before):
                     f.launches = b

@@ -32,6 +32,7 @@ MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.app", "simlod_tpu_torch.config"
            "simlod_tpu_torch.formats.synthetic", "simlod_tpu_torch.io.streaming",
            "simlod_tpu_torch.octree.build",
            "simlod_tpu_torch.octree.colorfilter",
+           "simlod_tpu_torch.octree.graphs",
            "simlod_tpu_torch.octree.inspect",
            "simlod_tpu_torch.octree.structures",
            "simlod_tpu_torch.ops.morton", "simlod_tpu_torch.ops.ragged",
