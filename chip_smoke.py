@@ -86,7 +86,8 @@ Phases (every one must pass; a failure raises and exits non-zero):
  11. LAZ streamed path: the .laz directory through the simultaneous loop
      (open(chunk_steps=1) -> frame(1920, 1080) until drained, point_budget 1.0,
      frame_budget_ms 50, yaw +0.03 rad per frame); the tree must equal phase
-     10's and each LAZ file must be decoded exactly once;
+     10's and the stream must decode each tile's LASzip chunks exactly once
+     (`PointStream.laz_chunks` == the tiles' chunk count);
  12. colour filter and overlays on phase 10's state: filter_colors (seconds,
      host syncs, unchanged node and voxel counts), exact and pooled 1080p frames
      with show_bounding_box off and on, those with boxes also through both
@@ -2932,7 +2933,10 @@ def main(argv=None) -> int:
 
         # --- phase 11: LAZ streamed path (simultaneous loop, pooled) ---
         from simlod_tpu_torch.formats import laz
-        decodes, decode_s = laz.decode_count, laz.decode_seconds
+        from simlod_tpu_torch.utils import trace
+        tile_chunks = sum(laz.index(os.path.join(dirs["laz"], f)).nchunks
+                          for f in os.listdir(dirs["laz"]))
+        snap = trace.snapshot()
         splat.launches = 0
         zero_frame_kernels()
         eng = Engine(cfg=None, settings=Settings(point_budget=1.0,
@@ -2952,11 +2956,12 @@ def main(argv=None) -> int:
         note_frame_kernels("laz_streamed")
         rep = eng.report()
         tree = {k: rep[k] for k in TREE}
-        n_dec = laz.decode_count - decodes
+        dec = trace.since(snap).get("laz.decode", dict(count=0, seconds=0.0))
+        n_chunks = eng.stream.laz_chunks
         check(tree == las_tree, f"LAZ streamed tree {tree} != LAS bulk "
               f"{las_tree}")
-        check(n_dec == len(tile_sizes), f"{n_dec} LAZ file decodes for "
-              f"{len(tile_sizes)} files")
+        check(n_chunks == tile_chunks, f"{n_chunks} LAZ chunks decoded for "
+              f"the {len(tile_sizes)} tiles' {tile_chunks}")
         check(launches["laz_streamed"] >= len(frame_ms),
               f"{launches['laz_streamed']} kernel launches for "
               f"{len(frame_ms)} frames")
@@ -2965,8 +2970,9 @@ def main(argv=None) -> int:
             f"1920x1080): {len(frame_ms)} frames in {loop_s:.2f} s = "
             f"{n / loop_s / 1e6:.2f} MP/s concurrent; frame ms median "
             f"{float(np.median(frame_ms)):.2f}, max {max(frame_ms):.2f}; "
-            f"{n_dec} whole-file LAZ decodes (one per file) taking "
-            f"{laz.decode_seconds - decode_s:.2f} s on the host CPU; host syncs "
+            f"{n_chunks} LAZ chunks (each tile's, once) decoded in "
+            f"{dec['count']} range decodes taking {dec['seconds']:.2f} s of "
+            f"loader-thread time on the host CPU; host syncs "
             f"{rep['host_syncs']}; splat_samples launches "
             f"{launches['laz_streamed']}; tree {tree} equals the LAS bulk "
             f"load's; card: {card}")

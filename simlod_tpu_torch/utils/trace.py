@@ -11,6 +11,8 @@
     reads nested in its spans at any depth, so a span's own host time is
     `seconds - sync_s`. `reads()` counts the reads; the engines count their
     own (`host_syncs`) as its difference around their calls.
+  - `add(name, seconds)` adds an interval that no one block holds (one
+    that starts in one thread and ends in another) to the same totals.
   - `snapshot()` and `since(snap)` give the totals made in between, per
     name: {count, seconds, sync_s}.
 
@@ -112,14 +114,22 @@ class span:
             self._rf.__exit__(*exc)
         # spans opened inside this one and left open close with it
         del t.stack[self._depth:]
-        with _lock:
-            tot = _totals.get(self.name)
-            if tot is None:
-                tot = _totals[self.name] = Timings()
-            tot.add(dt, sync)
-            if self.into is not None:
-                self.into.add(dt, sync)
+        add(self.name, dt, sync, self.into)
         return False
+
+
+def add(name: str, seconds: float, sync: float = 0.0,
+        into: Timings | None = None):
+    """Add `seconds` (of which `sync` in device reads) to the total of
+    `name`, and to `into` besides; host clock only, never on the
+    profiler's timeline."""
+    with _lock:
+        tot = _totals.get(name)
+        if tot is None:
+            tot = _totals[name] = Timings()
+        tot.add(seconds, sync)
+        if into is not None:
+            into.add(seconds, sync)
 
 
 def sync(site: str, t: torch.Tensor):

@@ -104,6 +104,25 @@ def test_span_stacks_are_per_thread_and_totals_add_from_threads():
     assert trace.open_spans() == ()
 
 
+def test_add_puts_an_interval_of_another_thread_on_the_totals():
+    """`add` takes an interval measured across threads (the stream's time
+    to its first item) into the same totals and an `into` Timings, and
+    leaves every thread's span stack alone."""
+    snap = trace.snapshot()
+    into = trace.Timings()
+    t0 = time.perf_counter()
+    th = threading.Thread(target=lambda: trace.add(
+        "t7.interval", time.perf_counter() - t0, into=into))
+    th.start()
+    th.join(timeout=10)
+    assert not th.is_alive()
+    trace.add("t7.interval", 0.5, sync=0.25)
+    d = trace.since(snap)["t7.interval"]
+    assert d["count"] == 2 and d["sync_s"] == pytest.approx(0.25)
+    assert d["seconds"] == pytest.approx(0.5 + into.total)
+    assert into.count == 1 and trace.open_spans() == ()
+
+
 def test_no_record_function_without_a_profiler(monkeypatch):
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) with no profiler")
@@ -132,6 +151,7 @@ def cloud(tmp_path_factory):
 
 LOAD_SPANS = {"engine.open", "open.config", "open.stream", "open.state",
               "engine.load_all", "stream.wait", "stream.stage",
+              "stream.first_item",
               "build.many", "build.step", "build.route", "build.split",
               "build.voxels", "build.insert", "build.finish"}
 
@@ -162,9 +182,9 @@ def test_a_load_is_traced(monkeypatch, cloud, bulk):
                                           "open.state"))
     assert parts <= d["engine.open"]["seconds"]
     st = eng.stream.stats()
-    assert set(st) == {"points_loaded", "bytes_read", "t_decode", "stage_s",
-                       "wait_s"}
-    assert st["points_loaded"] == 60_000
+    assert set(st) == {"points_loaded", "bytes_read", "laz_chunks",
+                       "t_decode", "stage_s", "wait_s"}
+    assert st["points_loaded"] == 60_000 and st["laz_chunks"] == 0
     assert st["stage_s"] == pytest.approx(d["stream.stage"]["seconds"],
                                           abs=1e-3)
     assert st["wait_s"] == pytest.approx(d["stream.wait"]["seconds"],
