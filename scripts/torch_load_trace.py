@@ -57,12 +57,12 @@ from simlod_tpu_torch.utils import trace  # noqa: E402
 
 # the phases of a bulk load, and the spans directly under engine.load_all
 PHASES = ("engine.open", "open.config", "open.stream", "open.state",
-          "engine.load_all", "load.drain", "stream.wait", "load.concat",
-          "build.many", "build.step", "build.route", "build.split",
-          "build.voxels", "build.insert", "build.compact", "build.finish",
-          "build.replay", "build.capture", "build.eager")
-LOAD_ALL_CHILDREN = ("load.drain", "load.concat", "build.many",
-                     "build.finish", "sync.engine.capacity")
+          "engine.load_all", "stream.wait", "load.item",
+          "load.item_overlapped", "build.many", "build.step", "build.route",
+          "build.split", "build.voxels", "build.insert", "build.compact",
+          "build.finish", "build.replay", "build.capture", "build.eager")
+LOAD_ALL_CHILDREN = ("stream.wait", "load.item", "build.finish",
+                     "sync.engine.capacity")
 
 
 def phases(d: dict, loop_s: float) -> dict:

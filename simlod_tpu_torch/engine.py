@@ -403,14 +403,18 @@ class Engine:
 
     def load_all(self, poll_every: int | None = None,
                  bulk: bool | None = None) -> None:
-        """Consume the entire stream (the reference's drag-drop load).
+        """Consume the entire stream (the reference's drag-drop load),
+        dispatching each streamed item's build as it arrives, so the card
+        builds while the file still streams (span `load.item` an item).
 
-        Bulk path (default when the file fits the point pool): take every
-        uploaded chunk, then build them all with one build_many call, which
-        compacts the voxel store in-loop at its watermark. Chunked path
-        (bulk=False, a partly consumed stream, or a file larger than the point
-        pool): one build per streamed item with a capacity poll every
-        `poll_every` items."""
+        Bulk path (default when the file fits the point pool): every item
+        through build_many (`ingest_chunk`, one-step streams too), which
+        compacts the voxel store in-loop at its watermark, and nothing read
+        between items: the steps, their order and the compactions are those
+        of one build_many over the whole stream. Chunked path (bulk=False, a
+        partly consumed stream, or a file larger than the point pool): each
+        item through the build its stream gives it (`_ingest_item`), with a
+        capacity poll every `poll_every` items."""
         if self.stream is None:
             return
         with trace.span("engine.load_all", self.t_build):
@@ -418,37 +422,40 @@ class Engine:
                 bulk = (self._consumed_chunks == 0
                         and self.stream.total_points
                         <= self.cfg.point_capacity)
-            if bulk:
-                with trace.span("load.drain"):
-                    items = list(self._stream_iter)
-                self._consumed_chunks += len(items)
-                self.last_batch_finished = True
-                if items:
-                    with trace.span("load.concat"):
-                        planes = [torch.cat([it[i] for it in items])
-                                  for i in range(4)]
-                        counts = np.concatenate([it[4] for it in items])
-                        del items
-                    self.ingest_chunk((*planes, counts), sync=False)
-                    del planes
-            else:
-                if poll_every is None:
-                    poll_every = 1 if self.cfg.estimated_state_bytes() \
-                        > (1 << 30) else 4
-                chunks = 0
-                while (item := self._next_item()) is not None:
-                    self._ingest_item(item, sync=False)
-                    chunks += 1
-                    if chunks % poll_every == 0:
-                        self._maybe_compact(poll=True)
-                        if self._capacity_flag:
-                            break
-                self.last_batch_finished = True
+            if not bulk and poll_every is None:
+                poll_every = 1 if self.cfg.estimated_state_bytes() \
+                    > (1 << 30) else 4
+            built = []      # (host clock, seconds) of each item's build call
+            while (item := self._next_item()) is not None:
+                t0 = time.perf_counter()
+                with trace.span("load.item"):
+                    if bulk:
+                        self.ingest_chunk(item, sync=False)
+                    else:
+                        self._ingest_item(item, sync=False)
+                built.append((t0, time.perf_counter() - t0))
+                if not bulk and len(built) % poll_every == 0:
+                    self._maybe_compact(poll=True)
+                    if self._capacity_flag:
+                        break
+            self.last_batch_finished = True
+            self._count_overlapped(built, ended=item is None)
             self._splits_finished = True
             self.finish_splits()
             self._capacity_flag = bool(self._read(
                 "engine.capacity", [self.state.mem_capacity_reached])[0])
             self._steps_since_poll = 0
+
+    def _count_overlapped(self, built: list, ended: bool) -> None:
+        """A `load.item_overlapped` span (the item's build seconds) for each
+        item of `built` whose build was dispatched before the stream's
+        uploader had queued its last plane set. The stream's last item
+        (`ended`: the stream has ended) never was; a stream that has not
+        ended has not queued its last set yet."""
+        last = self.stream.t_last_queued
+        for t0, dt in built[:-1] if ended else built:
+            if last is None or t0 < last:
+                trace.add("load.item_overlapped", dt)
 
     def _end_of_stream(self) -> None:
         """Stream drained (or capacity reached): run the one-time end-of-load

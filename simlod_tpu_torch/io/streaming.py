@@ -189,6 +189,9 @@ class PointStream:
         self.points_loaded = 0
         self.t_decode = 0.0     # loaders: file read + column decode
         self.laz_chunks = 0     # LAZ chunks decoded by this stream
+        # set once by the uploader, read-only elsewhere: the host clock
+        # (perf_counter) at which it queued its last plane set
+        self.t_last_queued: float | None = None
         # this stream's `stream.stage` spans (uploader: pinned-plane fills and
         # the H2D copy launches) and `stream.wait` spans (consumer blocked)
         self.t_stage = trace.Timings()
@@ -317,7 +320,7 @@ class PointStream:
         planes = self._free.get() if self._cuda else self._new_planes(False)
         counts = np.zeros(K, np.int32)
         step = fill = 0
-        first_item = True
+        queued = None       # host clock of the latest plane set queued
 
         def recycle_one():
             events, pset = inflight.popleft()
@@ -326,7 +329,7 @@ class PointStream:
             self._free.put(pset)
 
         def flush():
-            nonlocal planes, counts, step, fill, first_item
+            nonlocal planes, counts, step, fill, queued
             if fill > 0:
                 for p in planes:
                     p.numpy()[step, fill:] = 0
@@ -343,11 +346,11 @@ class PointStream:
             item = (out, events, counts.copy())
             if not self._put(self._ready, item):
                 return
-            if first_item:
+            if queued is None:
                 # PointStream's start to its first plane set on `_ready`
                 trace.add("stream.first_item",
                           time.perf_counter() - self._t_start)
-                first_item = False
+            queued = time.perf_counter()
             counts = np.zeros(K, np.int32)
             step = 0
             if self._cuda:
@@ -395,6 +398,7 @@ class PointStream:
                 raise RuntimeError(f"stream lost batches ({nxt} of "
                                    f"{self._n_batches})")
             flush()
+            self.t_last_queued = queued
         while inflight:
             recycle_one()
         self._put(self._ready, None)

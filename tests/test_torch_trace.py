@@ -161,7 +161,8 @@ def test_a_load_is_traced(monkeypatch, cloud, bulk):
     """Engine.open (sizing its config, as the app's engine does) +
     load_all: every device read is a `sync.<site>` and they add up to
     host_syncs; one build.step span per step; the phases of the load are
-    there (drain and concat on the bulk path only)."""
+    there, with one load.item span per streamed item on either path (the
+    bulk path drains and concatenates nothing)."""
     monkeypatch.setattr(EngineConfig, "auto",
                         classmethod(lambda cls, **kw: cls(**KW)))
     eng = Engine(None, Settings(), device="cpu")
@@ -176,7 +177,11 @@ def test_a_load_is_traced(monkeypatch, cloud, bulk):
             "sync.engine.overfull", "sync.engine.capacity"} <= set(syncs)
     assert d["build.step"]["count"] == eng.steps == -(-60_000 // (1 << 13))
     assert LOAD_SPANS <= set(d)
-    assert ({"load.drain", "load.concat"} <= set(d)) == bulk
+    assert d["load.item"]["count"] == eng._consumed_chunks > 1
+    assert not {"load.drain", "load.concat"} & set(d)
+    # the stream's last item is never built before its own plane set queued
+    overlapped = d.get("load.item_overlapped", dict(count=0))["count"]
+    assert overlapped < eng._consumed_chunks
     assert d["stream.wait"]["count"] >= eng._consumed_chunks
     parts = sum(d[n]["seconds"] for n in ("open.config", "open.stream",
                                           "open.state"))
