@@ -149,8 +149,9 @@ Phases 15-16 run 4 shards on one card: they show the sharded path works
 there, not how it scales over cards.
 
 Every frame of Engine.render on the card (phases 3, 4c, 7, 7b, 10, 12, 17)
-replays a CUDA graph of its key; the launch counters add each replay's
-launches. It prints a JSON line with the graph phases' numbers, then one
+goes through its graph cache: the first frame of a key runs eagerly and
+records the key's CUDA graph, every later one replays it; the launch
+counters count the eager frame's launches and add each replay's. It prints a JSON line with the graph phases' numbers, then one
 with the kernels' launches, errors, times and bounds,
 the card line, and as its last line {"ok": true, "device": {...}}. Without a
 CUDA device it exits 1.
@@ -838,10 +839,8 @@ class uncounted:
     to compare a kernel with its plain version are not the path's."""
 
     def __enter__(self):
-        from simlod_tpu_torch.render import raster, raster_tiles
-        self.saved = [(f, f.launches) for f in (
-            raster.splat_samples, raster.splat_resolve,
-            raster_tiles.tile_resolve, *frame_kernels().values())]
+        from simlod_tpu_torch import kernels
+        self.saved = [(f, f.launches) for f in kernels.COUNTED]
 
     def __exit__(self, *exc):
         for f, n in self.saved:
@@ -1525,17 +1524,12 @@ def phase_helpers(cfg, state, u, windows, card: str):
     say(f"phase 4b: {time.perf_counter() - t_phase:.1f} s")
 
 
-class EagerFrames:
-    """Stands in for Engine.graphs: runs each frame's span eagerly, so that
-    Engine.render is the same call without a graph (the graph frame's
-    yardstick)."""
-    captures = replays = 0
-
-    def run(self, key, span, device):
-        return span()
-
-    def clear(self):
-        pass
+def eager_frames():
+    """Stands in for Engine.graphs: a frame cache that takes no card, so
+    that Engine.render runs each frame's span eagerly, the same call
+    without a graph (the graph frame's yardstick)."""
+    from simlod_tpu_torch.graphs import FrameGraphs
+    return FrameGraphs(device_type="cpu")
 
 
 def host_us(fn, reps: int = 20):
@@ -1588,16 +1582,17 @@ def eager_span(eng):
 
 
 def graph_equals_eager(eng, what: str) -> float:
-    """eng.render (a replay of its key's graph) against the eager span of
-    the same key: the image bit for bit and every Stats counter. Returns
-    the share of pixels drawn."""
+    """eng.render (a replay of its key's graph, or the first sight of the
+    key, which runs the frame and records it) against the eager span of the
+    same key: the image bit for bit and every Stats counter. Returns the
+    share of pixels drawn."""
     import torch
     from simlod_tpu_torch import constants as C
     from simlod_tpu_torch.engine import _STATS, _to_stats
-    replays = eng.graphs.replays
+    seen = eng.graphs.captures + eng.graphs.replays
     img, stats = eng.render(W, H)
-    check(eng.graphs.replays == replays + 1,
-          f"graph frames, {what}: Engine.render replayed no graph")
+    check(eng.graphs.captures + eng.graphs.replays == seen + 1,
+          f"graph frames, {what}: Engine.render went past its graph cache")
     with uncounted():
         want, stack = eager_span(eng)()
     torch.cuda.synchronize()
@@ -1626,16 +1621,24 @@ def settle(eng):
     check(False, f"the windows of a still camera did not settle: {ws}")
 
 
+def run_and_record(span, dev):
+    """span() run once eagerly (its first use), then recorded as a CUDA
+    graph that has not run: the graph caches' protocol (graphs.py)."""
+    from simlod_tpu_torch.graphs import record_cuda_graph
+    span()
+    return record_cuda_graph(span, dev)
+
+
 def coop_capture_answer(dev, card: str) -> str:
     """Whether a cudaLaunchCooperativeKernel launch (the way visibility and
     plan_many launch) captures into a CUDA graph and replays: the empty
-    kernel through the frame kernels' ctypes path, captured alone."""
+    kernel through the frame kernels' ctypes path, run once and then
+    recorded alone."""
     import torch
     from simlod_tpu_torch import kernels
-    from simlod_tpu_torch.render.render import capture_cuda_graph
     try:
         with uncounted():
-            g = capture_cuda_graph(lambda: kernels.noop(dev, True), dev)
+            g = run_and_record(lambda: kernels.noop(dev, True), dev)
             g.replay()
             torch.cuda.synchronize()
         answer = ("cudaLaunchCooperativeKernel captures into a CUDA graph "
@@ -1668,8 +1671,7 @@ def coop_kernels_in_graph(eng, card: str) -> dict:
     import torch
     from simlod_tpu_torch.ops import ragged
     from simlod_tpu_torch.render import raster, visibility
-    from simlod_tpu_torch.render.render import (_trim_directories,
-                                                capture_cuda_graph)
+    from simlod_tpu_torch.render.render import _trim_directories
     u = eng.uniforms(W, H)
     pw, vw, nw, sw = eng.last_windows
     st = _trim_directories(eng.state, nw, sw)
@@ -1683,8 +1685,8 @@ def coop_kernels_in_graph(eng, card: str) -> dict:
                      st, u),
                  "plan_blocks": lambda: ragged.plan_blocks_many_cuda(specs)}
         for name, fn in calls.items():
-            one = capture_cuda_graph(fn, dev)
-            many = capture_cuda_graph(lambda: [fn() for _ in range(20)], dev)
+            one = run_and_record(fn, dev)
+            many = run_and_record(lambda: [fn() for _ in range(20)], dev)
             row = {"graph_call_ms": time_ms(one.graph.replay),
                    "graph_ms": queued_ms(many.graph.replay, reps=5),
                    "eager_call_ms": time_ms(fn), "eager_ms": queued_ms(fn)}
@@ -1778,9 +1780,9 @@ def render_host_us(eng, frames: int = 20) -> dict:
 
 def graph_memory(eng, what: str, card: str) -> dict:
     """MB over the memory eng's state holds: the peak over two eager frames
-    of the current key, the peak over the capture of its graph (warm-up
-    frame included), what the live graph holds allocated (its outputs) and
-    what its private pool reserves."""
+    of the current key, the peak over the capture of its graph (the eager
+    first frame included), what the live graph holds allocated (its
+    outputs) and what its private pool reserves."""
     import torch
     graphs = eng.graphs
     graphs.clear()
@@ -1789,7 +1791,7 @@ def graph_memory(eng, what: str, card: str) -> dict:
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    eng.graphs = EagerFrames()
+    eng.graphs = eager_frames()
     eng.render(W, H)
     eng.render(W, H)
     eager_peak = torch.cuda.max_memory_allocated() - base
@@ -1829,7 +1831,7 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
     eager span, both back to back: queued_ms) and host µs to issue it
     (host_us);
     Engine.render's wall ms with the graph against the same call without
-    (EagerFrames), interleaved as route_pair does. Fills GRAPHS[what]."""
+    (eager_frames), interleaved as route_pair does. Fills GRAPHS[what]."""
     import numpy as np
     import torch
     from simlod_tpu_torch.render.render import frame_key
@@ -1942,7 +1944,7 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
     moving = {}
     yaw0 = eng.orbit.yaw
     for name in ("graph", "eager", "eager", "graph"):
-        eng.graphs = graphs if name == "graph" else EagerFrames()
+        eng.graphs = graphs if name == "graph" else eager_frames()
         eng.graphs.clear()
         eng.orbit.yaw = yaw0
         c = graphs.captures
@@ -1976,7 +1978,7 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
     ms = {True: [], False: []}
     for i in range(11):
         for g in ((True, False) if i % 2 else (False, True)):
-            eng.graphs = graphs if g else EagerFrames()
+            eng.graphs = graphs if g else eager_frames()
             t1 = time.perf_counter()
             eng.render(W, H)
             dt = (time.perf_counter() - t1) * 1e3
@@ -2000,8 +2002,8 @@ def phase_graphs(eng, what: str, card: str, toggles, orbit: int = 20,
         f"{dev_text(dev_eager)}; host µs to issue a frame: graph replay "
         f"{us_text(host_graph)}, eager span {us_text(host_eager)}; "
         f"frame_key {key_us:.1f} µs, the uniform write {uni_us:.1f} µs; "
-        f"{n_caps} captures in this phase, {cap_ms:.1f} ms each (warm-up "
-        f"frame included); card: {card}")
+        f"{n_caps} captures in this phase, {cap_ms:.1f} ms each (the "
+        f"eager first frame included); card: {card}")
 
 
 def graph_toggles(eng, pooled: bool) -> list:

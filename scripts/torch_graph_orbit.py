@@ -46,7 +46,7 @@ STEPS = {"app": None, "viewer": 0.05}    # None: 2 pi / 60 (app.py)
 
 def smoke_helpers():
     """This repository's chip_smoke.py as a module (card_line,
-    EagerFrames)."""
+    eager_frames)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -56,8 +56,8 @@ def smoke_helpers():
 
 def sight_graphs(sight: int):
     """A FrameGraphs that runs a key's frame eagerly until the key's
-    `sight`-th frame, which captures."""
-    from simlod_tpu_torch.render.render import FrameGraphs
+    `sight`-th frame, which runs it and records the graph."""
+    from simlod_tpu_torch.graphs import FrameGraphs
 
     class SightGraphs(FrameGraphs):
         def __init__(self):
@@ -87,7 +87,7 @@ def per_frame_windows(self):
     return self.last_windows
 
 
-POLICIES = {"eager": (lambda: smoke_helpers().EagerFrames(), False),
+POLICIES = {"eager": (lambda: smoke_helpers().eager_frames(), False),
             "held": (None, False),
             "per-frame": (None, True),
             "per-frame, 2nd sight": (lambda: sight_graphs(2), True),
@@ -97,7 +97,7 @@ POLICIES = {"eager": (lambda: smoke_helpers().EagerFrames(), False),
 def run(eng, policy: str, step: float, frames: int, start: dict) -> dict:
     import numpy as np
     import torch
-    from simlod_tpu_torch.render.render import FrameGraphs
+    from simlod_tpu_torch.graphs import FrameGraphs
     make, per_frame = POLICIES[policy]
     for k, v in start.items():
         setattr(eng, k, v)

@@ -320,7 +320,7 @@ class UniformBuffer:
     frame's values into the same device bytes (one small host-to-device
     copy, ordered on the current stream after the work that read the last
     frame's) and returns Uniforms whose tensors are the same views each
-    time. A captured frame (render.FrameGraphs) reads its per-frame values
+    time. A recorded frame (graphs.FrameGraphs) reads its per-frame values
     there, so a replay sees the frame's camera and settings. On the card
     the copy leaves from pinned host memory without waiting for the device;
     the next write waits for it before refilling those bytes."""

@@ -46,7 +46,7 @@
 // (4 B a segment), its tile sums and visibility's partial rows; no launch needs
 // a host read and none takes a per-frame value by value: visibility reads
 // the frame's camera and scalars from the device (Uniforms.vis), EDL its
-// strength, so that a frame captured as a CUDA graph (render.FrameGraphs)
+// strength, so that a frame recorded as a CUDA graph (graphs.FrameGraphs)
 // reads each replay's values. A cudaLaunchCooperativeKernel launch
 // captures into a CUDA graph as it is and replays with its grid barriers
 // (H100, nvcc 12.9, torch 2.11 cu128: chip_smoke.py phase 4c).

@@ -24,8 +24,8 @@ The JAX package's compile-storm workarounds (AOT preload, stream shape pins,
 the XLA cache, the per-state watermark cache) are not part of this port:
 PyTorch runs eagerly, and the state is updated in place. Its jitted frame
 and build step have counterparts: on the card `render` replays a CUDA graph
-per static key (render.FrameGraphs), and every build on the engine's state
-replays the step's stretches as CUDA graphs (octree/graphs.BuildGraphs),
+per static key (graphs.FrameGraphs), and every build on the engine's state
+replays the step's stretches as CUDA graphs (graphs.BuildGraphs),
 which `reset` keeps across opens by re-initialising the state in place.
 """
 from __future__ import annotations
@@ -38,16 +38,15 @@ import torch
 
 from .config import (EngineConfig, Settings, Stats, UniformBuffer, Uniforms,
                      resolve_device)
+from .graphs import BuildGraphs, FrameGraphs
 from .io.streaming import PointStream, scan_paths
 from .octree import build
-from .octree.graphs import BuildGraphs
 from .octree.structures import OctreeState, init_state, reset_state
 from .ops import ragged
 from .render import camera as camera_mod
 from .render import drawpool as drawpool_mod
-from .render.render import (FrameGraphs, FrameStats, frame_key,
-                            probe_pooled_counts, render_frame,
-                            render_frame_pooled)
+from .render.render import (FrameStats, frame_key, probe_pooled_counts,
+                            render_frame, render_frame_pooled)
 from .utils import trace
 
 
@@ -696,10 +695,10 @@ class Engine:
         compaction, a pool rebuild or a window re-probe.
 
         On the card the frame's span (render_frame or render_frame_pooled,
-        then the Stats tensors) runs as a CUDA graph, captured on the first
-        frame of its key (render.frame_key) and replayed on every later one
-        (`self.graphs`); the image returned is a copy of the graph's. On the
-        CPU the span runs eagerly."""
+        then the Stats tensors) runs through `self.graphs`: eagerly and then
+        recorded as a CUDA graph on the first frame of its key
+        (render.frame_key), replayed on every later one; the image returned
+        is a copy. On the CPU the span runs eagerly."""
         # an exact voxel CSR needs every tail append folded in
         m = self._marks()
         m = self._maybe_compact(force=m["vox_used"] > m["vox_compacted"],
@@ -725,7 +724,7 @@ class Engine:
                 img, fstats = render_frame(cfg, state, width, height, u,
                                            *args)
                 return img, _frame_stack(state, fstats)
-        if self.device.type == "cuda":
+        if self.graphs.applies(self.device):
             img, stack = self.graphs.run(
                 frame_key(cfg, width, height, args, u, state, pool), span,
                 self.device)

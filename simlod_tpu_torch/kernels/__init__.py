@@ -158,6 +158,21 @@ def last_grid(kernel: str) -> int:
     return load().simlod_last_grid(COOP_KERNELS[kernel])
 
 
+# the kernel wrappers whose `.launches` count their kernels' launches
+COUNTED: list = []
+
+
+def counted(wrapper):
+    """Registers a kernel wrapper in COUNTED, its `.launches` set to 0: the
+    wrapper adds one for each launch it makes, and a CUDA graph's recording
+    sets it back (graphs.record_cuda_graph), each replay adding what the
+    recording launched."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
+
+
+@counted
 def noop(device, cooperative: bool = False) -> None:
     """Launches the empty kernel of csrc/frame.cu (one block of 32 threads)
     on the current stream of `device` through the same ctypes path as the
@@ -167,8 +182,6 @@ def noop(device, cooperative: bool = False) -> None:
     check_launch(rc, "noop")
     noop.launches += 1
 
-
-noop.launches = 0
 
 # every view of an arena starts on this many bytes
 ALIGN = 16

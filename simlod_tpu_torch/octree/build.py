@@ -20,7 +20,7 @@ What changed in the port:
     CUDA graph that reads them stays valid from step to step.
   - The JAX package jits the step. Here `_build` runs it as six stretches
     between its device reads, each eagerly (`eager`) or, given a
-    BuildGraphs (octree/graphs.py) on the card, as a CUDA graph replay.
+    graphs.BuildGraphs on the card, as a CUDA graph replay.
 """
 from __future__ import annotations
 
@@ -869,7 +869,7 @@ def build_step(cfg: EngineConfig, state: OctreeState, x, y, z, rgba,
     With `graphs` (a BuildGraphs) on a state it takes, the step's stretches
     replay as CUDA graphs; otherwise they run eagerly."""
     with trace.span("build.step"):
-        if graphs is not None and graphs.applies(state):
+        if graphs is not None and graphs.applies(state.device):
             run, (x, y, z, rgba, count) = graphs.step(cfg, state, x, y, z,
                                                       rgba, count)
         else:

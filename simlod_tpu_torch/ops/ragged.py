@@ -223,6 +223,7 @@ def plan_blocks_many_cuda(specs) -> list[BlockPlan]:
     return plans
 
 
+@kernels.counted
 def plan_blocks_cuda(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int,
                      mask: torch.Tensor | None = None,
                      index: torch.Tensor | None = None) -> BlockPlan:
@@ -230,9 +231,6 @@ def plan_blocks_cuda(src_off: torch.Tensor, cnt: torch.Tensor, out_len: int,
     the plan kernel's launches: one per batched call, however many sets it
     plans."""
     return plan_blocks_many_cuda([(src_off, cnt, out_len, mask, index)])[0]
-
-
-plan_blocks_cuda.launches = 0
 
 
 def expand(bp: BlockPlan) -> RaggedPlan:

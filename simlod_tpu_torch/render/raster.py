@@ -310,6 +310,7 @@ def splat_resolve_reference(pix: torch.Tensor, dbits: torch.Tensor,
     return out, fbd
 
 
+@kernels.counted
 def splat_resolve(pix: torch.Tensor, dbits: torch.Tensor, color: torch.Tensor,
                   mode: torch.Tensor, npx: int):
     """The CUDA splat kernel (csrc/raster_splat.cu) on CUDA tensors; raises for
@@ -357,9 +358,6 @@ def splat_resolve(pix: torch.Tensor, dbits: torch.Tensor, color: torch.Tensor,
     return out, depth
 
 
-splat_resolve.launches = 0
-
-
 def splat_samples_reference(cfg: EngineConfig, uniforms: Uniforms, width: int,
                             height: int, sample_sets):
     """Plain PyTorch version of the splat_samples kernel: materialize +
@@ -385,6 +383,7 @@ def _checked(t: torch.Tensor, what: str, dtype, dev, shape=None) -> int:
     return kernels.data_ptr(t, "splat_samples", what, dtype, dev, shape)
 
 
+@kernels.counted
 def splat_samples(cfg: EngineConfig, uniforms: Uniforms, width: int,
                   height: int, sources):
     """The CUDA kernel csrc/raster_splat.cu (`simlod_splat_samples`) on
@@ -462,9 +461,6 @@ def splat_samples(cfg: EngineConfig, uniforms: Uniforms, width: int,
     return out, depth
 
 
-splat_samples.launches = 0
-
-
 def _device(s) -> torch.device:
     return (s.x if isinstance(s, Samples) else s.c0).device
 
@@ -517,6 +513,7 @@ def edl_reference(color: torch.Tensor, depth_bits: torch.Tensor,
     return u32_bits(ch(0) | (ch(1) << 8) | (ch(2) << 16) | 0xFF000000)
 
 
+@kernels.counted
 def edl_cuda(color: torch.Tensor, depth_bits: torch.Tensor,
              uniforms: Uniforms, width: int, height: int) -> torch.Tensor:
     """The CUDA kernel csrc/frame.cu (`simlod_edl`) on CUDA tensors; raises
@@ -547,6 +544,3 @@ def edl_cuda(color: torch.Tensor, depth_bits: torch.Tensor,
         kernels.stream(dev)), where)
     edl_cuda.launches += 1
     return out
-
-
-edl_cuda.launches = 0

@@ -127,6 +127,7 @@ def tile_resolve_reference(cols: torch.Tensor, offs: torch.Tensor,
     return color.to(torch.int32), depth.to(torch.int32)
 
 
+@kernels.counted
 def tile_resolve(cols: torch.Tensor, offs: torch.Tensor, mode: torch.Tensor,
                  n_tiles: int):
     """The CUDA tile-resolve kernel (csrc/raster_tiles.cu) on CUDA tensors; raises
@@ -166,9 +167,6 @@ def tile_resolve(cols: torch.Tensor, offs: torch.Tensor, mode: torch.Tensor,
         raise RuntimeError(f"tile_resolve: kernel launch failed (cudaError {rc})")
     tile_resolve.launches += 1
     return color, depth
-
-
-tile_resolve.launches = 0
 
 
 def rasterize_tiles(cfg: EngineConfig, uniforms: Uniforms, width: int,

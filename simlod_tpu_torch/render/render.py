@@ -10,22 +10,20 @@ Python loop.
 
 The JAX package jits render_frame and render_frame_pooled on their static
 arguments (simlod_tpu/render/render.py:139-142, 237-242). Their counterpart
-here is `FrameGraphs`: a frame's span captured once per static key as a CUDA
-graph and replayed as one unit. The functions below stay the un-jitted
-bodies: the CPU path, and what a graph captures.
+here is graphs.FrameGraphs: a frame's span recorded once per static key
+(`frame_key`) as a CUDA graph and replayed as one unit. The functions below
+stay the un-jitted bodies: the CPU path, and what a graph records.
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
-import gc
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import EngineConfig, Uniforms
+from ..graphs import _tensor_key
 from ..octree.structures import OctreeState
 from ..ops import ragged
 from . import drawpool, lines, raster, raster_tiles, visibility
@@ -255,100 +253,6 @@ def render_frames_pooled(cfg: EngineConfig, state: OctreeState,
         exact_vw, node_window, seg_window), uniforms_seq)
 
 
-def _launch_counters() -> tuple:
-    """The kernel wrappers whose `.launches` count their launches, looked up
-    when a graph is captured (a caller's replacement wrapper is counted)."""
-    return (raster.splat_samples, raster.splat_resolve,
-            raster_tiles.tile_resolve, visibility.compute_visibility_cuda,
-            ragged.plan_blocks_cuda, raster.edl_cuda)
-
-
-class CapturedFrame(NamedTuple):
-    """A frame's span captured as one CUDA graph: `outputs` are the graph's
-    own tensors, which each replay overwrites; `launches` the kernel launches
-    the capture recorded, per wrapper."""
-    graph: object
-    outputs: object
-    launches: tuple              # ((wrapper, launches a replay makes), ...)
-
-    def replay(self) -> None:
-        """Run the graph on the card; each wrapper counts the launches its
-        kernel makes in it."""
-        self.graph.replay()
-        for fn, n in self.launches:
-            fn.launches += n
-
-
-def capture_cuda_graph(span, device) -> CapturedFrame:
-    """Capture `span()` (a function of no arguments that launches a frame's
-    work on the current stream and returns its tensors) on CUDA `device`.
-
-    First use happens outside the capture: one eager run of the span on a
-    side stream, as torch.cuda.graph asks, builds the kernel library, asks
-    for the cooperative grids and makes the device constants. Then
-    record_cuda_graph. An error raises: nothing runs the eager span in the
-    graph's place."""
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            span()
-        torch.cuda.current_stream().wait_stream(side)
-    return record_cuda_graph(span, device)
-
-
-def record_cuda_graph(span, device, pool=None) -> CapturedFrame:
-    """Record `span()` as a CUDA graph on `device` without running it (a
-    span whose first use has happened). The recording runs on a stream of
-    its own in thread-local mode (the stream's loader threads may copy
-    meanwhile), in `pool` (torch.cuda.graph_pool_handle: a memory pool
-    shared with graphs that never run at the same time as this one) or
-    else a private pool. A recording launches nothing, so the wrappers'
-    counts are set back to what they were; a replay adds them. The cyclic
-    garbage collector waits while it records: a collection could free
-    another graph, which CUDA forbids while a stream captures."""
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fns = _launch_counters()
-            before = [f.launches for f in fns]
-            graph = torch.cuda.CUDAGraph()
-            collecting = gc.isenabled()
-            gc.disable()
-            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                outputs = span()
-            except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass        # the span's own error is the one to raise
-                raise
-            else:
-                graph.capture_end()
-            finally:
-                if collecting:
-                    gc.enable()
-                made = [f.launches - b for f, b in zip(fns, before)]
-                for f, b in zip(fns, before):
-                    f.launches = b
-        torch.cuda.current_stream().wait_stream(side)
-    return CapturedFrame(graph, outputs,
-                         tuple((f, n) for f, n in zip(fns, made) if n))
-
-
-def _tensor_key(obj) -> tuple:
-    """(pointer, shape) of every tensor field of a dataclass or NamedTuple:
-    a graph reads each tensor where it lay at capture, so a replaced tensor
-    (a compaction, a pool rebuild, a new state) changes the key."""
-    if obj is None:
-        return ()
-    vals = obj if isinstance(obj, tuple) else vars(obj).values()
-    return tuple((t.data_ptr(), t.shape) for t in vals
-                 if isinstance(t, torch.Tensor))
-
-
 def frame_key(cfg: EngineConfig, width: int, height: int, windows,
               uniforms: Uniforms, state: OctreeState,
               pool: drawpool.DrawPool | None = None) -> tuple:
@@ -361,51 +265,6 @@ def frame_key(cfg: EngineConfig, width: int, height: int, windows,
     return (cfg, width, height, tuple(windows), uniforms.flags,
             pool is not None, _tensor_key(state), _tensor_key(pool),
             _tensor_key(uniforms))
-
-
-# graphs a FrameGraphs keeps (each with its memory pool) before it evicts
-MAX_GRAPHS = 4
-
-
-class FrameGraphs:
-    """Frames captured as CUDA graphs, one per static key (frame_key), in an
-    LRU of MAX_GRAPHS: the port's counterpart of the JAX package's jax.jit
-    cache of render_frame and render_frame_pooled. `run(key, span, device)`
-    captures the span the first time its key is seen and replays the graph
-    on every later call with that key; the returned tensors belong to the
-    graph and the next replay overwrites them. Each graph holds its memory
-    pool until the LRU evicts it or the cache is dropped. `capture(span,
-    device)` makes a graph (capture_cuda_graph; tests inject another)."""
-
-    def __init__(self, capture=capture_cuda_graph):
-        self.capture = capture
-        self._graphs: collections.OrderedDict = collections.OrderedDict()
-        self.captures = 0
-        self.capture_seconds = 0.0
-        self.replays = 0
-
-    def __len__(self) -> int:
-        return len(self._graphs)
-
-    def run(self, key, span, device):
-        graph = self._graphs.get(key)
-        if graph is None:
-            t0 = time.perf_counter()
-            graph = self.capture(span, device)
-            self.capture_seconds += time.perf_counter() - t0
-            self.captures += 1
-            self._graphs[key] = graph
-            if len(self._graphs) > MAX_GRAPHS:
-                self._graphs.popitem(last=False)
-        else:
-            self._graphs.move_to_end(key)
-        graph.replay()
-        self.replays += 1
-        return graph.outputs
-
-    def clear(self) -> None:
-        """Drop every graph (and its memory pool)."""
-        self._graphs.clear()
 
 
 def probe_pooled_counts(cfg: EngineConfig, state: OctreeState,

@@ -138,6 +138,7 @@ _NODE_COLUMNS = ("nx", "ny", "nz", "level", "parent", "child_base",
                  "num_points", "num_voxels")
 
 
+@kernels.counted
 def compute_visibility_cuda(state: OctreeState, uniforms: Uniforms,
                             pool=None, cfg: EngineConfig | None = None
                             ) -> Visibility:
@@ -204,6 +205,3 @@ def compute_visibility_cuda(state: OctreeState, uniforms: Uniforms,
     kernels.check_launch(rc, where)
     compute_visibility_cuda.launches += 1
     return Visibility(*out, *counts.unbind(), *extra)
-
-
-compute_visibility_cuda.launches = 0

@@ -1,7 +1,8 @@
-"""The build step's stretches as CUDA graphs (octree/graphs.BuildGraphs).
+"""The build step's stretches as CUDA graphs (graphs.BuildGraphs).
 
-On the CPU (no card, no graph): the cache with an injected capture whose
-"graph" runs the recorded stretch again at each replay, so a replayed build
+On the CPU (no card, no graph): the cache with the injected recorder of
+tests/graph_fakes.py, whose "graph" runs the recorded stretch again at each
+replay, so a replayed build
 reads and writes exactly the tensors a real graph would have frozen (the
 state's, the input columns and the slots). It holds the replayed build_many
 equal to the eager one on every state column, over clustered points whose
@@ -27,12 +28,13 @@ import torch
 from simlod_tpu_torch.config import EngineConfig, Settings
 from simlod_tpu_torch.engine import Engine
 from simlod_tpu_torch.formats import simlod, synthetic
+from simlod_tpu_torch.graphs import BuildGraphs
 from simlod_tpu_torch.octree import build
-from simlod_tpu_torch.octree.graphs import BuildGraphs
 from simlod_tpu_torch.octree.structures import (OctreeState, init_state,
                                                 reset_state)
-from simlod_tpu_torch.render.render import CapturedFrame
 from simlod_tpu_torch.utils import trace
+
+from graph_fakes import FakeRecord
 
 # six test processes share the machine in the tier-1 run; these small tensors
 # gain nothing from intra-op threads, which would oversubscribe the cores
@@ -48,26 +50,6 @@ KW = dict(cand_multi_rows=1 << 12, node_capacity=1 << 12,
 # low enough that build_many compacts the voxel store mid-load
 LOW_WATERMARK = dict(voxel_compact_watermark=0.25)
 STRETCHES = ("route", "gather", "round", "leaves", "cand_round", "insert")
-
-
-class FakeRecord:
-    """A capture function for the CPU: records the span without running it;
-    each replay of the "graph" runs it again."""
-
-    def __init__(self):
-        self.spans = []
-
-    def __call__(self, span, device):
-        self.spans.append(span)
-        return CapturedFrame(FakeGraph(span), None, ())
-
-
-class FakeGraph:
-    def __init__(self, span):
-        self.span = span
-
-    def replay(self):
-        self.span()
 
 
 def _cloud(n=40_000, seed=5):
@@ -127,7 +109,7 @@ def replayed(cloud):
     cfg = EngineConfig(**KW, **LOW_WATERMARK)
     xyz, rgba = cloud
     eager, eager_spans = _build(cfg, xyz, rgba, "cpu")
-    graphs = BuildGraphs(capture=FakeRecord(), device_type="cpu")
+    graphs = BuildGraphs(record=FakeRecord(), device_type="cpu")
     first, first_spans = _build(cfg, xyz, rgba, "cpu", graphs)
     captures = dict(graphs.captures)
     second, second_spans = _build(cfg, xyz, rgba, "cpu", graphs, state=first)
@@ -192,7 +174,7 @@ def test_every_stretch_passes_one_span(replayed):
 def test_a_replaced_state_column_changes_the_key(cloud):
     cfg = EngineConfig(**KW)
     xyz, rgba = cloud
-    graphs = BuildGraphs(capture=FakeRecord(), device_type="cpu")
+    graphs = BuildGraphs(record=FakeRecord(), device_type="cpu")
     state, _ = _build(cfg, xyz[:B], rgba[:B], "cpu", graphs)
     before = sum(graphs.captures.values())
     state.level = state.level.clone()
@@ -209,7 +191,7 @@ def test_a_dropped_cache_is_freed_at_once(cloud):
     records."""
     cfg = EngineConfig(**KW)
     xyz, rgba = cloud
-    graphs = BuildGraphs(capture=FakeRecord(), device_type="cpu")
+    graphs = BuildGraphs(record=FakeRecord(), device_type="cpu")
     _build(cfg, xyz[:B], rgba[:B], "cpu", graphs)
     assert len(graphs) > 0
     ref = weakref.ref(graphs)
@@ -281,7 +263,7 @@ def test_an_engine_reopen_captures_nothing(tmp_path_factory, cloud):
     path = _scan(tmp_path_factory, cloud)
     cfg = EngineConfig(**KW, **LOW_WATERMARK)
     eng = Engine(cfg, Settings(), device="cpu")
-    eng.build_graphs = BuildGraphs(capture=FakeRecord(), device_type="cpu")
+    eng.build_graphs = BuildGraphs(record=FakeRecord(), device_type="cpu")
     state = _engine_load(eng, path)
     ptrs = [t.data_ptr() for t in vars(state).values()]
     captures = sum(eng.build_graphs.captures.values())
@@ -298,7 +280,7 @@ def test_an_engine_with_new_shapes_drops_its_build_graphs(tmp_path_factory,
                                                           cloud):
     path = _scan(tmp_path_factory, cloud)
     eng = Engine(EngineConfig(**KW), Settings(), device="cpu")
-    eng.build_graphs = BuildGraphs(capture=FakeRecord(), device_type="cpu")
+    eng.build_graphs = BuildGraphs(record=FakeRecord(), device_type="cpu")
     old = _engine_load(eng, path)
     assert len(eng.build_graphs) > 0
     eng.cfg = EngineConfig(**dict(KW, segment_capacity=1 << 15))
@@ -323,7 +305,7 @@ def test_a_run_of_bricks_captures_once(tmp_path_factory, cloud):
     # its config (it widens the block under drops, a config of its own)
     cfg = EngineConfig(**dict(KW, cand_multi_rows=1 << 14))
     graphed = OutOfCoreEngine(cfg, Settings(), device="cpu")
-    graphed.engine.build_graphs = BuildGraphs(capture=FakeRecord(),
+    graphed.engine.build_graphs = BuildGraphs(record=FakeRecord(),
                                               device_type="cpu")
     eager = OutOfCoreEngine(cfg, Settings(), device="cpu")
     for e in (graphed, eager):

@@ -1,9 +1,11 @@
-"""Engine.render's frames as CUDA graphs (render.FrameGraphs), the port's
+"""Engine.render's frames as CUDA graphs (graphs.FrameGraphs), the port's
 counterpart of the JAX package's jitted render_frame / render_frame_pooled.
 
-On the CPU (no card, no graph): the graph cache with an injected capture
-function (one capture per key; a change of each key field captures again;
-the LRU evicts; a capture error raises), frame_key over a real state, pool
+On the CPU (no card, no graph): the graph cache with the injected recorder
+of tests/graph_fakes.py, whose replays run the span (a key's first sight
+runs the span once and records it, later sights replay; one capture per
+key; a change of each key field captures again; the LRU evicts; a capture
+error raises), frame_key over a real state, pool
 and uniform buffer, Uniforms written into the persistent UniformBuffer
 against Uniforms.make value for value (the buffer never moves), the
 visibility kernel's floats read from that buffer feeding the plain version
@@ -15,7 +17,7 @@ On the card (the `cuda` marker; `pytest tests/test_torch_graph.py -m cuda
 --noconftest`): graph frames bit-equal to eager frames of the same key over
 an orbit and across each switch, the tile route, a compaction and a pool
 rebuild; returned images that do not alias; launch counters that count
-replays; a capture error that raises.
+replays; a recording error that raises.
 """
 import dataclasses
 
@@ -29,12 +31,15 @@ from simlod_tpu_torch.engine import (_STATS, WINDOW_SHRINK_FRAMES, Engine,
                                      _frame_stack, _to_stats, held_window,
                                      sample_window)
 from simlod_tpu_torch.formats import simlod, synthetic
+from simlod_tpu_torch.graphs import (MAX_GRAPHS, CapturedFrame, FrameGraphs,
+                                     record_cuda_graph)
 from simlod_tpu_torch.octree.structures import init_state
 from simlod_tpu_torch.render import drawpool, raster
 from simlod_tpu_torch.render.camera import Camera, OrbitControls
-from simlod_tpu_torch.render.render import (MAX_GRAPHS, CapturedFrame,
-                                            FrameGraphs, frame_key,
-                                            render_frame, render_frame_pooled)
+from simlod_tpu_torch.render.render import (frame_key, render_frame,
+                                            render_frame_pooled)
+
+from graph_fakes import FakeGraph, FakeRecord
 
 # six test processes share the machine in the tier-1 run; these small tensors
 # gain nothing from intra-op threads, which would oversubscribe the cores
@@ -48,31 +53,6 @@ KW = dict(candidate_factor=21, cand_multi_rows=1 << 13,
           max_splits_per_round=64, seg_select_cap=1 << 10,
           max_points_per_node=256, max_render_points=1 << 17,
           max_render_voxels=1 << 17)
-
-
-class FakeCapture:
-    """A capture function for the CPU: runs the span once and records it."""
-
-    def __init__(self, fail=None):
-        self.spans = []
-        self.fail = fail
-
-    def __call__(self, span, device):
-        if self.fail is not None:
-            raise self.fail
-        self.spans.append(span)
-        graph = FakeGraph(span)
-        return CapturedFrame(graph, graph.outputs, ())
-
-
-class FakeGraph:
-    def __init__(self, span):
-        self.span = span
-        self.outputs = span()
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
 
 
 def _transform(yaw):
@@ -98,16 +78,42 @@ def small():
     return cfg, state, pool, buf
 
 
+def _cpu_graphs(rec=None):
+    return FrameGraphs(record=rec or FakeRecord(), device_type="cpu")
+
+
 def test_graph_cache_captures_once_per_key():
-    cap = FakeCapture()
-    graphs = FrameGraphs(capture=cap)
+    cap = FakeRecord()
+    graphs = _cpu_graphs(cap)
     calls = []
     span = lambda: calls.append(1) or torch.ones(3)
-    first = graphs.run("k", span, "cpu")
+    graphs.run("k", span, "cpu")
+    graphs.run("k", span, "cpu")
     again = graphs.run("k", span, "cpu")
-    assert graphs.captures == 1 and len(cap.spans) == 1 and len(calls) == 1
-    assert graphs.replays == 2 and first is again
+    # the first sight's eager run, then one run per (fake) replay
+    assert graphs.captures == 1 and len(cap.spans) == 1 and len(calls) == 3
+    (graph,) = graphs._graphs.values()
+    assert graphs.replays == 2 and again is graph.outputs
     assert len(graphs) == 1 and graphs.capture_seconds >= 0.0
+
+
+def test_a_first_sight_runs_the_span_once_and_records_it():
+    """A key's first sight runs the frame once, as the frame's work, and
+    returns its result; the recording runs nothing; the second sight
+    replays the graph without running the span eagerly again."""
+    cap = FakeRecord()
+    graphs = _cpu_graphs(cap)
+    calls = []
+    span = lambda: calls.append(1) or torch.full((1,), float(len(calls)))
+    first = graphs.run("k", span, "cpu")
+    (graph,) = graphs._graphs.values()
+    assert len(calls) == 1 and first.item() == 1.0
+    assert len(cap.spans) == 1 and graph.replays == 0
+    assert graphs.captures == 1 and graphs.replays == 0
+    second = graphs.run("k", span, "cpu")
+    assert len(calls) == 2 and graph.replays == 1
+    assert second is graph.outputs and second.item() == 2.0
+    assert graphs.captures == 1 and graphs.replays == 1
 
 
 def _key_changes(cfg, state, pool, u):
@@ -141,15 +147,14 @@ def test_graph_cache_recaptures_on_each_key_field(small, field):
     changed = _key_changes(cfg, state, pool, u)[field]
     if field == "pool tensor":
         base = base[:6] + (pool,)
-    cap = FakeCapture()
-    graphs = FrameGraphs(capture=cap)
+    graphs = _cpu_graphs()
     span = lambda: torch.zeros(1)
     graphs.run(frame_key(*base), span, "cpu")
     graphs.run(frame_key(*base), span, "cpu")
     assert graphs.captures == 1
     assert frame_key(*changed) != frame_key(*base)
     graphs.run(frame_key(*changed), span, "cpu")
-    assert graphs.captures == 2 and graphs.replays == 3
+    assert graphs.captures == 2 and graphs.replays == 1
 
 
 def test_a_new_frame_keeps_its_key(small):
@@ -167,8 +172,7 @@ def test_a_new_frame_keeps_its_key(small):
 
 
 def test_graph_cache_lru_evicts_the_least_recently_used():
-    cap = FakeCapture()
-    graphs = FrameGraphs(capture=cap)
+    graphs = _cpu_graphs()
     span = lambda: torch.zeros(1)
     keys = list(range(MAX_GRAPHS + 1))
     # key 1 is the least recently used when the last key comes in
@@ -249,7 +253,7 @@ def test_held_windows_take_fewer_values_than_per_frame_windows():
 
 def test_a_capture_error_propagates():
     err = RuntimeError("operation not permitted when stream is capturing")
-    graphs = FrameGraphs(capture=FakeCapture(fail=err))
+    graphs = _cpu_graphs(FakeRecord(fail=err))
     with pytest.raises(RuntimeError) as got:
         graphs.run("k", lambda: torch.zeros(1), "cpu")
     assert got.value is err
@@ -495,12 +499,14 @@ def _held_to_eager(eng):
 def test_graph_frames_equal_eager_frames_over_an_orbit(card, budget):
     eng = card
     eng.settings = Settings(min_node_size=8.0, point_budget=budget)
-    captures = eng.graphs.captures
+    captures, replays = eng.graphs.captures, eng.graphs.replays
     for k in range(12):
         _look(eng, 0.25 * k)
         _held_to_eager(eng)
     assert eng.graphs.captures > captures
-    assert eng.graphs.replays >= 12
+    # each frame is a first sight of its key or a replay
+    assert eng.graphs.captures + eng.graphs.replays == captures + replays + 12
+    assert eng.graphs.replays > replays
 
 
 TOGGLES = {"edl off": dict(enable_edl=False),
@@ -533,6 +539,9 @@ def test_graph_frames_equal_eager_frames_across_switches(card, toggle, budget,
 
 @pytest.mark.cuda
 def test_a_window_change_recaptures(card):
+    """A new key's first frame captures, runs the frame once (one launch of
+    each kernel) and equals the eager frame."""
+    from simlod_tpu_torch.ops import ragged
     eng = card
     eng.settings = Settings(min_node_size=8.0)
     _look(eng, 0.2)
@@ -541,7 +550,13 @@ def test_a_window_change_recaptures(card):
     captures, windows = eng.graphs.captures, eng.last_windows
     eng._last_windows = (1 << 18, 1 << 18)
     eng._last_visible = (1 << 19, 1 << 19)      # larger sample windows
-    _held_to_eager(eng)
+    fns = (ragged.plan_blocks_cuda, raster.edl_cuda, raster.splat_samples)
+    before = [f.launches for f in fns]
+    img, stats = eng.render(W, H)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1]
+    want, stack = _eager(eng)
+    assert torch.equal(img, want)
+    assert stats == _to_stats(dict(zip(_STATS, stack.tolist())))
     assert eng.last_windows != windows
     assert eng.graphs.captures == captures + 1
 
@@ -604,15 +619,21 @@ def test_launch_counters_count_replays(card, budget):
 
 @pytest.mark.cuda
 def test_a_capture_error_raises_on_the_card(card):
-    from simlod_tpu_torch.render.render import capture_cuda_graph
+    """The recorder raises the span's error (a copy from pageable memory
+    cannot be recorded), a cache keeps no graph of it, and the next span
+    records and replays."""
     dev = torch.device("cuda", torch.cuda.current_device())
     host = torch.arange(4, dtype=torch.float32)     # pageable memory
     span = lambda: host.to(dev) * 2
+    with pytest.raises(RuntimeError):
+        record_cuda_graph(span, dev)
     graphs = FrameGraphs()
     with pytest.raises(RuntimeError):
         graphs.run("pageable copy", span, dev)
     assert len(graphs) == 0
-    out = capture_cuda_graph(lambda: torch.ones(4, device=dev) * 2, dev)
+    two = lambda: torch.ones(4, device=dev) * 2
+    two()
+    out = record_cuda_graph(two, dev)
     out.replay()
     torch.cuda.synchronize()
     assert torch.equal(out.outputs, torch.full((4,), 2.0, device=dev))

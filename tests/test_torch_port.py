@@ -4,6 +4,7 @@ splat_samples, visibility, plan_blocks and edl kernels are bit-equal to their
 plain PyTorch versions. On a machine with a card, run the card tests with
 `python -m pytest tests/test_torch_port.py -m cuda --noconftest`;
 chip_smoke.py runs the same comparisons at the main path's shapes."""
+import ast
 import os
 import subprocess
 import sys
@@ -26,13 +27,13 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["simlod_tpu_torch", "simlod_tpu_torch.app", "simlod_tpu_torch.config",
            "simlod_tpu_torch.constants", "simlod_tpu_torch.engine",
+           "simlod_tpu_torch.graphs",
            "simlod_tpu_torch.kernels", "simlod_tpu_torch.native",
            "simlod_tpu_torch.outofcore", "simlod_tpu_torch.formats.las",
            "simlod_tpu_torch.formats.laz", "simlod_tpu_torch.formats.simlod",
            "simlod_tpu_torch.formats.synthetic", "simlod_tpu_torch.io.streaming",
            "simlod_tpu_torch.octree.build",
            "simlod_tpu_torch.octree.colorfilter",
-           "simlod_tpu_torch.octree.graphs",
            "simlod_tpu_torch.octree.inspect",
            "simlod_tpu_torch.octree.structures",
            "simlod_tpu_torch.ops.morton", "simlod_tpu_torch.ops.ragged",
@@ -80,6 +81,52 @@ def test_every_port_module_is_listed():
                     "simlod_tpu_torch.parallel", "simlod_tpu_torch.render",
                     "simlod_tpu_torch.tools",
                     "simlod_tpu_torch.utils"} == set(MODULES)
+
+
+# the layers below the renderer: neither they nor graphs.py import render/
+LOWER = ("octree", "ops", "io", "formats", "kernels", "utils")
+
+
+def _imports(mod: str) -> set:
+    """Every module that `mod`'s source imports, function-level imports
+    included, as absolute names (and each imported name as mod.name)."""
+    path = os.path.join(ROOT, *mod.split("."))
+    is_pkg = os.path.isdir(path)
+    path = os.path.join(path, "__init__.py") if is_pkg else path + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    pkg = mod.split(".") if is_pkg else mod.split(".")[:-1]
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                base = ".".join(pkg[:len(pkg) - node.level + 1]
+                                + ([node.module] if node.module else []))
+            out.add(base)
+            out.update(f"{base}.{a.name}" for a in node.names)
+    return out
+
+
+def _imports_render(mod: str) -> bool:
+    return any(m == "simlod_tpu_torch.render"
+               or m.startswith("simlod_tpu_torch.render.")
+               for m in _imports(mod))
+
+
+def test_lower_layers_never_import_render():
+    lower = [m for m in MODULES
+             if m.partition(".")[2].split(".")[0] in (*LOWER, "graphs")]
+    assert len(lower) >= 18
+    assert [m for m in lower if _imports_render(m)] == []
+    # the scan resolves relative imports at module level and in functions
+    assert _imports_render("simlod_tpu_torch.parallel.shard")
+    assert "simlod_tpu_torch.ops.ragged" in _imports(
+        "simlod_tpu_torch.octree.structures")
+    assert "simlod_tpu_torch.octree.structures._cand_capacity" in _imports(
+        "simlod_tpu_torch.config")
 
 
 def _stream(n_tiles=4):
