@@ -8,6 +8,14 @@ Phases (every one must pass; a failure raises and exits non-zero):
      the CUDA kernels from simlod_tpu_torch/csrc with nvcc, print the seconds
      and the co-resident grids of the two cooperative kernels of
      csrc/frame.cu (visibility, plan_many);
+  1b. the build's Morton kernels (csrc/morton.cu: route_keys, decode_sorted,
+     prefix_floor, spill_floor, key_words, node_keys) on columns of the main path's
+     shapes made on the card from a seed (a step's 2,097,152 points routed,
+     sorted and decoded as the build does): each bit-equal to its plain
+     version on the card, timed by CUDA events (the device time back to
+     back, and per call as the host enqueues them) beside its bound (inputs
+     read once, outputs written once at 3.35 TB/s) and the plain version's
+     time; phase 3's load must launch each (`morton_launches`);
   2. small reference: a 60k-point terrain through Engine on the GPU and on the
      CPU (plain PyTorch versions of the kernels): equal counters, images within
      1 per channel of each other and of the goldens in tests/golden/; then
@@ -1379,6 +1387,130 @@ def samples_vs_plain(cfg, u, sets, what: str, card: str):
     return err, ms, plain_ms, bound, prev, stage, rows, call_ms, prof_ms
 
 
+# the build's Morton kernels: {name: [max err, device ms back to back,
+# plain device ms, bound ms, ms a call, rows]} (phase 1b) and their launches
+# in phase 3's load
+MORTON = {}
+MORTON_LAUNCHES = {}
+
+
+def morton_kernels() -> dict:
+    """The wrappers of csrc/morton.cu's kernels, by name."""
+    from simlod_tpu_torch.ops import morton
+    return {"route_keys": morton.route_keys_cuda,
+            "decode_sorted": morton.decode_sorted_cuda,
+            "prefix_floor": morton.prefix_floor_cuda,
+            "spill_floor": morton.spill_floor_cuda,
+            "key_words": morton.key_words_cuda,
+            "node_keys": morton.node_keys_cuda}
+
+
+def phase_morton(dev, card: str):
+    """Phase 1b: each Morton kernel against its plain version on the card
+    at the main path's shapes (EngineConfig.auto at 36M points), bit-equal,
+    then timed: device ms back to back (queued_ms) for the kernel and the
+    plain version, ms a call (time_ms), the bound. Fills MORTON."""
+    import torch
+    from simlod_tpu_torch import constants as C
+    from simlod_tpu_torch.config import EngineConfig
+    from simlod_tpu_torch.octree import build
+    from simlod_tpu_torch.ops import morton
+    t_phase = time.perf_counter()
+    cfg = EngineConfig.auto(36_000_000, memory_bytes=80 << 30)
+    B = cfg.step_points
+    BW = B + min(cfg.boundary_window, cfg.node_capacity)
+    SPW = build._split_widths(cfg)[-1]
+    W2 = BW + SPW
+    G2W = min(W2, cfg.cand_multi_rows or max(W2 // 4, 1024))
+    g = torch.Generator(device=dev).manual_seed(20)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    rand = lambda n, hi: torch.randint(0, hi, (n,), generator=g, device=dev,
+                                       dtype=torch.int32)
+    # a step's points in a box, 1% of them NaN or outside it
+    box, cube = torch.tensor([-3.5, 12.25, 100.0], device=dev), \
+        torch.tensor(1234.5, device=dev)
+    xyz = box + torch.rand(3, B, generator=g, device=dev).T * cube
+    odd = torch.rand(B, generator=g, device=dev) < 0.01
+    xyz[odd] = torch.tensor([float("nan"), 1e30, -1.0], device=dev)
+    x, y, z = (xyz[:, i].contiguous() for i in range(3))
+    count = i32(B - 1000)
+    # the merged stream: the points' keys and boundary rows, sorted
+    w2, pk0, pk1 = morton.route_keys_reference(x, y, z, box, cube, count)
+    nb = BW - B
+    k0 = torch.cat([pk0, rand(nb, 1 << 30)])
+    k1 = torch.cat([pk1, rand(nb, 1 << 30) << 1])
+    k2 = torch.cat([w2, torch.zeros(nb, dtype=torch.int32, device=dev)])
+    order = torch.sort((k0.long() << 32) | k1.long(), stable=True).indices
+    sk0, sk1, sk2 = k0[order], k1[order], k2[order]
+    sw1, qx, qy, qz = morton.decode_sorted_reference(sk0, sk1, sk2)
+    valid = ((sk1 & 1) == 1) & (sk0 != 0x7FFFFFFF)
+    lvl = rand(BW, C.MAX_DEPTH + 1)
+    # the spill: SPW sorted words, the last third fill rows
+    sp = torch.arange(SPW, device=dev) * BW // SPW
+    n_spill = i32(SPW * 2 // 3)
+    s0, s1, s2 = sk0[sp], sw1[sp], sk2[sp]
+    cum = rand(SPW, 1 << 24) * 32 + rand(SPW, 32)
+    glvl = rand(SPW, C.MAX_DEPTH + 1)
+    # the candidate rows, then the multi-level block of a round
+    cw = [torch.cat([a, b]) for a, b in ((sk0, s0), (sw1, s1), (sk2, s2))]
+    clo = rand(W2, C.MAX_DEPTH + 1)
+    r = i32(2)
+    # a step's round-1 children: nodes below 2^level at their levels
+    NK = 8 * cfg.max_splits_per_round
+    nlv = rand(NK, C.MAX_DEPTH + 1)
+    nodes = [rand(NK, 1 << 30) >> (30 - nlv) for _ in range(3)]
+    calls = {
+        "route_keys": ((x, y, z, box, cube, count), B, 12 + 12),
+        "decode_sorted": ((sk0, sk1, sk2), BW, 12 + 16),
+        "prefix_floor": ((qx, qy, qz, valid, lvl), BW, 17 + 8),
+        "spill_floor": ((s0, s1, s2, glvl, cum, n_spill), SPW, 20 + 12),
+        "key_words": ((*cw, clo, None), W2, 16 + 12),
+        "key_words, a round": ((*(c[:G2W] for c in cw), clo[:G2W], r), G2W,
+                               16 + 12),
+        "node_keys": ((*nodes, nlv, False), NK, 16 + 8),
+        "node_keys, end": ((*nodes, nlv, True), NK, 16 + 8),
+    }
+    with uncounted():
+        for what, (args, n, row_bytes) in calls.items():
+            name = what.split(",")[0]
+            kernel = morton_kernels()[name]
+            plain = getattr(morton, f"{name}_reference")
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = max(_bit_err(a, b) for a, b in zip(got, want))
+            check(err == 0, f"{what}: kernel != plain version (max err {err})")
+            ms = queued_ms(lambda: kernel(*args))
+            plain_ms = queued_ms(lambda: plain(*args), reps=2)
+            call_ms = time_ms(lambda: kernel(*args))
+            bound = bound_ms(n * row_bytes)
+            MORTON[what] = [err, ms, plain_ms, bound, call_ms, n]
+            say(f"{what}: {n} rows, kernel {dev_text(ms)} on the device back "
+                f"to back ({call_ms:.4f} ms a call), plain version "
+                f"{dev_text(plain_ms)}, bound {bound:.4f} ms ({row_bytes} B "
+                f"a row), bit-equal; card: {card}")
+    say(f"phase 1b: {time.perf_counter() - t_phase:.1f} s")
+
+
+def morton_entries() -> list:
+    """The kernels line's entries of the Morton kernels."""
+    out = []
+    for name in morton_kernels():
+        err, ms, plain_ms, bound, call_ms, n = MORTON[name]
+        e = {"name": name, "route": "cuda",
+             "source": "simlod_tpu_torch/csrc/morton.cu", "replaces": None,
+             "launches": MORTON_LAUNCHES.get(name), "max_abs_err": err,
+             "rows": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": "bytes", "library_ms": None, "call_ms": call_ms}
+        second = {"key_words": "key_words, a round",
+                  "node_keys": "node_keys, end"}.get(name)
+        if second:
+            e[second.split(", ")[1].replace(" ", "_")] = dict(zip(
+                ("max_abs_err", "ms", "plain_ms", "bound_ms", "call_ms",
+                 "rows"), MORTON[second]))
+        out.append(e)
+    return out
+
+
 N_SHARDS = 4
 def phase_helpers(cfg, state, u, windows, card: str):
     """Phase 4b: the helpers that carry the JAX package's public names
@@ -2647,6 +2779,9 @@ def main(argv=None) -> int:
         f"on {torch.cuda.get_device_properties(cdev).multi_processor_count} "
         f"SMs (grid.sync() built without -rdc); card: {card}")
 
+    # --- phase 1b: the build's Morton kernels ---
+    phase_morton(cdev, card)
+
     with tempfile.TemporaryDirectory() as tmp:
         # --- phase 2: small reference ---
         phase_small_reference(tmp, dev)
@@ -2664,12 +2799,19 @@ def main(argv=None) -> int:
         launches, tile_launches = {}, {}
         splat.launches = tile.launches = resolve.launches = 0
         zero_frame_kernels()
+        for f in morton_kernels().values():
+            f.launches = 0
         eng = Engine(cfg=None, settings=Settings(), device=dev)
         eng.open([path])
         t0 = time.perf_counter()
         eng.load_all()
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        for name, f in morton_kernels().items():
+            MORTON_LAUNCHES[name] = f.launches
+            check(f.launches > 0, f"the bulk load launched no {name} kernel")
+        say(f"Morton kernel launches in the bulk load: "
+            f"{json.dumps(MORTON_LAUNCHES)}; card: {card}")
         load_syncs = eng.host_syncs
         img, stats = eng.render(W, H)
         first_ms = eng.t_render.max * 1e3
@@ -3204,7 +3346,8 @@ def main(argv=None) -> int:
         "ms": ex[1], "plain_ms": ex[2], "bound_ms": ex[3], "bound_by": "bytes",
         "library_ms": None, "stage_ms": sx[5],
         "ms_plain_ms_bound_ms_by_stream": by_stream(rows),
-    }, *(frame_kernel_entry(name, fk_rows) for name in FRAME_LAUNCHES)]}))
+    }, *(frame_kernel_entry(name, fk_rows) for name in FRAME_LAUNCHES),
+        *morton_entries()]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -291,5 +291,15 @@ def load() -> ctypes.CDLL:
             lib.simlod_noop.restype = i
             lib.simlod_edl.argtypes = [p, p, i, i, p, p, i, p]
             lib.simlod_edl.restype = i
+            ll = ctypes.c_longlong
+            # csrc/morton.cu: the pointers, then the rows, device, stream
+            for name, ptrs in (("route_keys", 9), ("decode_sorted", 7),
+                               ("prefix_floor", 7), ("spill_floor", 9),
+                               ("key_words", 8)):
+                fn = getattr(lib, f"simlod_{name}")
+                fn.argtypes = [p] * ptrs + [ll, i, p]
+                fn.restype = i
+            lib.simlod_node_keys.argtypes = [p] * 4 + [i, p, p, ll, i, p]
+            lib.simlod_node_keys.restype = i
             _lib = lib
         return _lib

@@ -34,7 +34,7 @@ from ..config import EngineConfig
 from ..ops import morton, ragged
 from ..ops.segments import (I32_MAX, compact_indices, compact_mask_via_sort,
                             cumsum32, dus, exclusive_cumsum, iota, lexsort,
-                            pack2, popcount32, roll1, scatter_drop)
+                            pack2, roll1, scatter_drop)
 from ..utils import trace
 from .structures import OctreeState
 
@@ -70,30 +70,19 @@ def _i32(v, device) -> torch.Tensor:
     return torch.full((), v, dtype=torch.int32, device=device)
 
 
-def boundary_key(nx, ny, nz, level):
-    """Morton interval-start key (2 int32 words) of a node's spatial interval."""
-    shift = C.FULL_GRID_BITS - level
-    w0, w1, _ = morton.encode(nx << shift, ny << shift, nz << shift)
-    return w0, w1
-
-
 def route(cfg: EngineConfig, state: OctreeState, x, y, z, rgba, count):
     """Sort the batch by Morton code and assign each point its current leaf
     (one merge sort of points + leaf boundaries, then a cumsum carry of the
     boundary packs). Returns (state, Work)."""
     dev = state.device
-    B = x.shape[0]
     n_cap = state.child_base.shape[0]
     W = min(cfg.boundary_window, n_cap)
     mx = I32_MAX
     if not isinstance(count, torch.Tensor):
         count = _i32(count, dev)
 
-    qx, qy, qz = morton.quantize_cols(x, y, z, state.box_min, state.cube_size)
-    valid = iota(B, dev) < count
-    w0, w1, w2 = morton.encode(qx, qy, qz)
-    pk0 = torch.where(valid, w0, mx)
-    pk1 = torch.where(valid, (w1 << 1) | 1, mx)
+    w2, pk0, pk1 = morton.route_keys(x, y, z, state.box_min, state.cube_size,
+                                     count)
 
     # re-sort the boundary window by (key0, key1, pack): splits appended rows
     state.mem_capacity_reached |= state.num_boundaries > W
@@ -124,8 +113,7 @@ def route(cfg: EngineConfig, state: OctreeState, x, y, z, rgba, count):
     sc = torch.where(is_pt, saux, 0)
     carried = cumsum32(torch.where(is_bnd, saux, 0))
     cpk = carried.clamp(min=0)
-    sw1 = sk1 >> 1
-    cqx, cqy, cqz = morton.decode(sk0, sw1, sk2)
+    sw1, cqx, cqy, cqz = morton.decode_sorted(sk0, sk1, sk2)
     return state, Work(w0=sk0, w1=sw1, w2=sk2, rgba=sc, qx=cqx, qy=cqy,
                        qz=cqz, leaf=cpk >> 5, lvl=cpk & 31, count=count,
                        valid=is_pt, k0=sk0, k1=sk1)
@@ -228,7 +216,7 @@ def _create_children(cfg: EngineConfig, state: OctreeState, tids, tv, n_take):
 
     # leaf-boundary directory: append the 8 child boundaries
     clvl = rep(plvl + 1)
-    bw0, bw1 = boundary_key(cnx, cny, cnz, clvl)
+    bw0, bw1 = morton.node_keys(cnx, cny, cnz, clvl)
     bpk = (rep(base) + octs.repeat(K)) * 32 + clvl
     pos = state.num_boundaries + iota(8 * K, dev)
     fitb = rep(tv) & (pos < n_cap)
@@ -242,28 +230,6 @@ def _create_children(cfg: EngineConfig, state: OctreeState, tids, tv, n_take):
     return state, base, cnx, cny, cnz, clvl
 
 
-def _common_prefix_lo(qx, qy, qz, prev_ok):
-    """Per-row first-in-cell emission floor from the Morton-sorted stream
-    (common prefix bits with the previous row, minus GRID_BITS-1)."""
-    xor3 = ((qx ^ roll1(qx)) | (qy ^ roll1(qy)) | (qz ^ roll1(qz)))
-    xor3 = torch.where(prev_ok, xor3, -1)
-    # uint32 math in int64: shift the 28 coordinate bits to the top of 32
-    yv = (xor3.to(torch.int64) << (32 - C.FULL_GRID_BITS)) & 0xFFFFFFFF
-    for s in (1, 2, 4, 8, 16):
-        yv = yv | (yv >> s)
-    n_common = 32 - popcount32(yv)
-    return torch.clamp(n_common - (C.GRID_BITS - 1), min=0)
-
-
-def _interval_end_query(nx, ny, nz, level):
-    """2-word query strictly greater than every Morton key inside the node."""
-    shift = C.FULL_GRID_BITS - level
-    ones = (torch.ones_like(nx) << shift) - 1
-    w0, w1, _ = morton.encode((nx << shift) | ones, (ny << shift) | ones,
-                              (nz << shift) | ones)
-    return w0, w1 + 1
-
-
 def _child_rows(wkeys, skeys, tv, base, cnx, cny, cnz, clvl,
                 t_ws, t_we, t_ss, t_se, B):
     """Frontier rows for the 8 children of each taken node: ids, levels, coords,
@@ -271,7 +237,7 @@ def _child_rows(wkeys, skeys, tv, base, cnx, cny, cnz, clvl,
     dev = tv.device
     K = tv.shape[0]
     rep = lambda a: torch.repeat_interleave(a, 8)
-    bw0, bw1 = boundary_key(cnx, cny, cnz, clvl)
+    bw0, bw1 = morton.node_keys(cnx, cny, cnz, clvl)
     posw = _lower_bound2(wkeys, bw0, bw1 << 1,
                          rep(t_ws), rep(t_we)).reshape(K, 8)
     ws = posw.clone()
@@ -500,11 +466,11 @@ def _gather(cfg: EngineConfig, state: OctreeState, work: Work, sel: Select,
     # taken nodes' spill intervals (their stored rows, contiguous post-sort)
     tnx, tny, tnz, tlv = (state.nx[tsafe], state.ny[tsafe], state.nz[tsafe],
                           state.level[tsafe])
-    t_s0, t_s1 = boundary_key(tnx, tny, tnz, tlv)
+    t_s0, t_s1 = morton.node_keys(tnx, tny, tnz, tlv)
     wkeys, skeys = pack2(work.k0, work.k1), pack2(sk0, sk1)
     zK = torch.zeros(K1, dtype=torch.int32, device=dev)
     tss = _lower_bound2(skeys, t_s0, t_s1, zK, zK + SPW)
-    tse = _lower_bound2(skeys, *_interval_end_query(tnx, tny, tnz, tlv),
+    tse = _lower_bound2(skeys, *morton.node_keys(tnx, tny, tnz, tlv, end=True),
                         zK, zK + SPW)
     tss = torch.where(tv, torch.minimum(tss, n_spill), 0)
     tse = torch.where(tv, torch.minimum(tse, n_spill), 0)
@@ -622,21 +588,17 @@ def _leaves(cfg: EngineConfig, state: OctreeState, work: Work, sel: Select,
 
     n_spill = spill.n
     cum_s = reroute(SPW, fl_ss, fl_se)
-    srow = iota(SPW, dev)
-    svalid = srow < n_spill
-    s_leaf = torch.where(cum_s > 0, (cum_s - 1) >> 5, 0)
-    s_flvl = torch.where(cum_s > 0, (cum_s - 1) & 31, 0)
 
     # --- spilled rows join the voxel-candidate emission ---
-    sqx, sqy, sqz = morton.decode(spill.k0, spill.k1, spill.k2)
-    prev_ok = svalid & roll1(svalid) & (srow > 0)
-    s_lo = torch.maximum(_common_prefix_lo(sqx, sqy, sqz, prev_ok), spill.glvl)
-    s_cnt = torch.where(svalid, torch.clamp(s_flvl - s_lo, min=0), 0)
+    s_leaf, s_lo, s_cnt = morton.spill_floor(spill.k0, spill.k1, spill.k2,
+                                             spill.glvl, cum_s, n_spill)
     spill_extra = (spill.k0, spill.k1, spill.k2, s_leaf, spill.rgba, s_lo,
                    s_cnt)
 
     # --- segment surgery: subdivide stored segments straight to final depth ---
     if has_spill:
+        srow = iota(SPW, dev)
+        svalid = srow < n_spill
         skey = torch.where(svalid, spill.seg, SS)
         order = lexsort((skey, s_leaf, spill.goff))
         o_seg, o_leaf, o_goff = skey[order], s_leaf[order], spill.goff[order]
@@ -684,14 +646,8 @@ def _candidates(cfg: EngineConfig, state: OctreeState, work: Work,
     Single-level emitters append in place here; multi-level emitters come
     back as the block that _cand_round appends round-major."""
     dev = state.device
-    B = work.leaf.shape[0]
-    rowi = iota(B, dev)
-    valid = work.valid
-    nlev = torch.clamp(work.lvl, min=1)
-
-    prev_ok = roll1(valid) & (rowi != 0)
-    lo = _common_prefix_lo(work.qx, work.qy, work.qz, prev_ok)
-    cnt = torch.where(valid, torch.clamp(nlev - lo, min=0), 0)
+    lo, cnt = morton.prefix_floor(work.qx, work.qy, work.qz, work.valid,
+                                  work.lvl)
 
     xw0, xw1, xw2, xleaf, xrgba, xlo, xcnt = spill_extra
     w0 = torch.cat([work.w0, xw0])
@@ -726,7 +682,7 @@ def _candidates(cfg: EngineConfig, state: OctreeState, work: Work,
     n_multi = (cls == 1).sum(dtype=torch.int32)
 
     # --- single-level emitters: packed at [0, n_single), level == lo ---
-    k0, k1, k2l = morton.key_words_at_level(sw0, sw1, sw2, slo.clamp(min=0))
+    k0, k1, k2l = morton.key_words(sw0, sw1, sw2, slo)
     state = _append_voxels_prefix(cfg, state, k0, k1, k2l, sleaf, srgba,
                                   n_single)
 
@@ -750,8 +706,7 @@ def _cand_round(cfg: EngineConfig, state: OctreeState, cand: Cand) -> dict:
     block's rows with ecnt > r at level lo + r."""
     r = cand.r
     k_r = (cand.ecnt > r).sum(dtype=torch.int32)
-    ek0, ek1, ek2l = morton.key_words_at_level(cand.w0, cand.w1, cand.w2,
-                                               cand.lo + r)
+    ek0, ek1, ek2l = morton.key_words(cand.w0, cand.w1, cand.w2, cand.lo, r)
     room = torch.clamp(cfg.voxel_capacity - state.vox_used, min=0)
     n_new = torch.minimum(k_r, room)
     for col, val in ((state.vox_k0, ek0), (state.vox_k1, ek1),

@@ -8,12 +8,20 @@ w0 = levels 0..9 (30 bits), w1 = levels 10..19 (30 bits), w2 = levels 20..27
 Every word, coordinate and intermediate here stays below 2^31, so plain int32
 arithmetic (and arithmetic `>>` on non-negative values) reproduces the JAX
 package's uint32 math bit for bit.
+
+The build step's chains of these ops are entry points of their own
+(route_keys, decode_sorted, prefix_floor, spill_floor, key_words,
+node_keys): on CUDA tensors each is one kernel of csrc/morton.cu (its
+`*_cuda` wrapper), on CPU tensors its plain version (`*_reference`), the
+torch ops the build ran before, which the kernel matches bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import constants as C
+from .. import kernels
+from .segments import I32_MAX, iota, popcount32, roll1
 
 WORD_LEVELS = (10, 10, 8)
 assert sum(WORD_LEVELS) == C.FULL_GRID_BITS
@@ -168,3 +176,236 @@ def key_words_decode(k0, k1, k2l):
     shift = (C.MAX_DEPTH + 1) - level
     m = C.GRID_SIZE - 1
     return level, (qx >> shift) & m, (qy >> shift) & m, (qz >> shift) & m
+
+
+# --- the build step's fused chains (csrc/morton.cu) ---------------------------
+
+
+def common_prefix_lo(qx, qy, qz, prev_ok):
+    """Per-row first-in-cell emission floor from the Morton-sorted stream
+    (common prefix bits with the previous row, minus GRID_BITS-1)."""
+    xor3 = ((qx ^ roll1(qx)) | (qy ^ roll1(qy)) | (qz ^ roll1(qz)))
+    xor3 = torch.where(prev_ok, xor3, -1)
+    # uint32 math in int64: shift the 28 coordinate bits to the top of 32
+    yv = (xor3.to(torch.int64) << (32 - C.FULL_GRID_BITS)) & 0xFFFFFFFF
+    for s in (1, 2, 4, 8, 16):
+        yv = yv | (yv >> s)
+    n_common = 32 - popcount32(yv)
+    return torch.clamp(n_common - (C.GRID_BITS - 1), min=0)
+
+
+def route_keys(x, y, z, box_min, cube_size, count):
+    """The routing keys of a step's batch: f32 columns x, y, z -> (w2, pk0,
+    pk1) int32: the points' third Morton word, and their first two as the
+    merge sort's keys (pk0 = w0, pk1 = (w1 << 1) | 1, both INT32_MAX from
+    row `count` on, a 0-d int32 tensor). The kernel for CUDA tensors, its
+    plain version for CPU tensors."""
+    impl = route_keys_cuda if x.is_cuda else route_keys_reference
+    return impl(x, y, z, box_min, cube_size, count)
+
+
+def route_keys_reference(x, y, z, box_min, cube_size, count):
+    """Plain version of route_keys: quantize_cols, encode, the pack."""
+    qx, qy, qz = quantize_cols(x, y, z, box_min, cube_size)
+    valid = iota(x.shape[0], x.device) < count
+    w0, w1, w2 = encode(qx, qy, qz)
+    pk0 = torch.where(valid, w0, I32_MAX)
+    pk1 = torch.where(valid, (w1 << 1) | 1, I32_MAX)
+    return w2, pk0, pk1
+
+
+def decode_sorted(k0, k1, k2):
+    """The merge-sorted routing stream's words (k1 tagged in bit 0) -> (w1,
+    qx, qy, qz) int32: k1 >> 1, and the coordinates decode(k0, w1, k2). The
+    kernel for CUDA tensors, its plain version for CPU tensors."""
+    impl = decode_sorted_cuda if k0.is_cuda else decode_sorted_reference
+    return impl(k0, k1, k2)
+
+
+def decode_sorted_reference(k0, k1, k2):
+    """Plain version of decode_sorted."""
+    w1 = k1 >> 1
+    return (w1, *decode(k0, w1, k2))
+
+
+def prefix_floor(qx, qy, qz, valid, lvl):
+    """Voxel-candidate levels of the Morton-sorted working batch -> (lo, cnt)
+    int32: each row's emission floor against the row before it (0 on row 0
+    and after an invalid row) and its count of levels, max(max(lvl, 1) - lo,
+    0) on valid rows, else 0. `valid` is bool. The kernel for CUDA tensors,
+    its plain version for CPU tensors."""
+    impl = prefix_floor_cuda if qx.is_cuda else prefix_floor_reference
+    return impl(qx, qy, qz, valid, lvl)
+
+
+def prefix_floor_reference(qx, qy, qz, valid, lvl):
+    """Plain version of prefix_floor."""
+    rowi = iota(qx.shape[0], qx.device)
+    nlev = torch.clamp(lvl, min=1)
+    prev_ok = roll1(valid) & (rowi != 0)
+    lo = common_prefix_lo(qx, qy, qz, prev_ok)
+    cnt = torch.where(valid, torch.clamp(nlev - lo, min=0), 0)
+    return lo, cnt
+
+
+def spill_floor(k0, k1, k2, glvl, cum_s, n_spill):
+    """Voxel-candidate levels of the spilled rows, sorted by full Morton key
+    -> (leaf, lo, cnt) int32: the final leaf and level from the re-route's
+    cumulative pack `cum_s` (id * 32 + level + 1, 0 for none), each row's
+    emission floor against the row before it, at least its old node's level
+    `glvl`, and its count of levels. Rows from `n_spill` (a 0-d int32
+    tensor) on count 0. The kernel for CUDA tensors, its plain version for
+    CPU tensors."""
+    impl = spill_floor_cuda if k0.is_cuda else spill_floor_reference
+    return impl(k0, k1, k2, glvl, cum_s, n_spill)
+
+
+def spill_floor_reference(k0, k1, k2, glvl, cum_s, n_spill):
+    """Plain version of spill_floor."""
+    srow = iota(k0.shape[0], k0.device)
+    svalid = srow < n_spill
+    s_leaf = torch.where(cum_s > 0, (cum_s - 1) >> 5, 0)
+    s_flvl = torch.where(cum_s > 0, (cum_s - 1) & 31, 0)
+    sqx, sqy, sqz = decode(k0, k1, k2)
+    prev_ok = svalid & roll1(svalid) & (srow > 0)
+    s_lo = torch.maximum(common_prefix_lo(sqx, sqy, sqz, prev_ok), glvl)
+    s_cnt = torch.where(svalid, torch.clamp(s_flvl - s_lo, min=0), 0)
+    return s_leaf, s_lo, s_cnt
+
+
+def key_words(w0, w1, w2, lo, r=None):
+    """key_words_at_level(w0, w1, w2, lo + r): the voxel keys at each row's
+    level lo plus the round `r`, a 0-d int32 tensor (None: round 0). The
+    kernel for CUDA tensors, its plain version for CPU tensors."""
+    impl = key_words_cuda if w0.is_cuda else key_words_reference
+    return impl(w0, w1, w2, lo, r)
+
+
+def key_words_reference(w0, w1, w2, lo, r=None):
+    """Plain version of key_words."""
+    return key_words_at_level(w0, w1, w2, lo if r is None else lo + r)
+
+
+def node_keys(nx, ny, nz, level, end: bool = False):
+    """The first two Morton words (int32) of each node's spatial interval:
+    its start key, or with `end` the query strictly greater than every key
+    inside the node (the start of its last cell, then w1 + 1). The kernel
+    for CUDA tensors, its plain version for CPU tensors."""
+    impl = node_keys_cuda if nx.is_cuda else node_keys_reference
+    return impl(nx, ny, nz, level, end)
+
+
+def node_keys_reference(nx, ny, nz, level, end: bool = False):
+    """Plain version of node_keys."""
+    shift = C.FULL_GRID_BITS - level
+    if not end:
+        w0, w1, _ = encode(nx << shift, ny << shift, nz << shift)
+        return w0, w1
+    ones = (torch.ones_like(nx) << shift) - 1
+    w0, w1, _ = encode((nx << shift) | ones, (ny << shift) | ones,
+                       (nz << shift) | ones)
+    return w0, w1 + 1
+
+
+def _columns(where: str, dtype, device, n: int, **cols) -> list:
+    """The device pointers of the [n] columns `cols` of a kernel wrapper."""
+    return [kernels.data_ptr(t, where, name, dtype, device, (n,))
+            for name, t in cols.items()]
+
+
+def _launch(wrapper, entry: str, n: int, device, args, outputs: int):
+    """`outputs` new int32 [n] columns, filled by the C entry point `entry`
+    of csrc/morton.cu, whose leading arguments are `args` (the input
+    pointers, and node_keys' flag); adds one launch to `wrapper.launches`.
+    An empty call launches nothing."""
+    out = [torch.empty(n, dtype=torch.int32, device=device)
+           for _ in range(outputs)]
+    if n:
+        where = wrapper.__name__
+        kernels.check_launch(getattr(kernels.load(), entry)(
+            *args, *(t.data_ptr() for t in out), n, device.index,
+            kernels.stream(device)), where)
+        wrapper.launches += 1
+    return tuple(out)
+
+
+@kernels.counted
+def route_keys_cuda(x, y, z, box_min, cube_size, count):
+    """route_keys by the kernel csrc/morton.cu `route_keys` on CUDA tensors;
+    raises for anything else. One pass over the batch in place of
+    quantize_cols, encode and the pack (some 150 torch ops): 12 B read and
+    12 B written a row. Adds one to `route_keys_cuda.launches` a call."""
+    where, dev, n = "route_keys_cuda", x.device, x.shape[0]
+    ptrs = _columns(where, torch.float32, dev, n, x=x, y=y, z=z)
+    ptrs += [kernels.data_ptr(box_min, where, "box_min", torch.float32, dev,
+                              (3,)),
+             kernels.data_ptr(cube_size, where, "cube_size", torch.float32,
+                              dev, ()),
+             kernels.data_ptr(count, where, "count", torch.int32, dev, ())]
+    return _launch(route_keys_cuda, "simlod_route_keys", n, dev, ptrs, 3)
+
+
+@kernels.counted
+def decode_sorted_cuda(k0, k1, k2):
+    """decode_sorted by the kernel csrc/morton.cu `decode_sorted` on CUDA
+    tensors; raises for anything else. 12 B read and 16 B written a row in
+    place of some 140 torch ops. Adds one to `decode_sorted_cuda.launches` a
+    call."""
+    where, dev, n = "decode_sorted_cuda", k0.device, k0.shape[0]
+    ptrs = _columns(where, torch.int32, dev, n, k0=k0, k1=k1, k2=k2)
+    return _launch(decode_sorted_cuda, "simlod_decode_sorted", n, dev, ptrs,
+                   4)
+
+
+@kernels.counted
+def prefix_floor_cuda(qx, qy, qz, valid, lvl):
+    """prefix_floor by the kernel csrc/morton.cu `prefix_floor` on CUDA
+    tensors; raises for anything else. 17 B read and 8 B written a row (the
+    row before from the cache) in place of some 35 torch ops. Adds one to
+    `prefix_floor_cuda.launches` a call."""
+    where, dev, n = "prefix_floor_cuda", qx.device, qx.shape[0]
+    ptrs = _columns(where, torch.int32, dev, n, qx=qx, qy=qy, qz=qz)
+    ptrs += _columns(where, torch.bool, dev, n, valid=valid)
+    ptrs += _columns(where, torch.int32, dev, n, lvl=lvl)
+    return _launch(prefix_floor_cuda, "simlod_prefix_floor", n, dev, ptrs, 2)
+
+
+@kernels.counted
+def spill_floor_cuda(k0, k1, k2, glvl, cum_s, n_spill):
+    """spill_floor by the kernel csrc/morton.cu `spill_floor` on CUDA
+    tensors; raises for anything else. 20 B read and 12 B written a row,
+    the coordinates decoded in registers, in place of some 190 torch ops.
+    Adds one to `spill_floor_cuda.launches` a call."""
+    where, dev, n = "spill_floor_cuda", k0.device, k0.shape[0]
+    ptrs = _columns(where, torch.int32, dev, n, k0=k0, k1=k1, k2=k2,
+                    glvl=glvl, cum_s=cum_s)
+    ptrs.append(kernels.data_ptr(n_spill, where, "n_spill", torch.int32, dev,
+                                 ()))
+    return _launch(spill_floor_cuda, "simlod_spill_floor", n, dev, ptrs, 3)
+
+
+@kernels.counted
+def key_words_cuda(w0, w1, w2, lo, r=None):
+    """key_words by the kernel csrc/morton.cu `key_words` on CUDA tensors;
+    raises for anything else. The round is read on the device, so a graph
+    that advances it replays at each round's level. 16 B read and 12 B
+    written a row in place of some 20 torch ops. Adds one to
+    `key_words_cuda.launches` a call."""
+    where, dev, n = "key_words_cuda", w0.device, w0.shape[0]
+    ptrs = _columns(where, torch.int32, dev, n, w0=w0, w1=w1, w2=w2, lo=lo)
+    ptrs.append(None if r is None else kernels.data_ptr(
+        r, where, "r", torch.int32, dev, ()))
+    return _launch(key_words_cuda, "simlod_key_words", n, dev, ptrs, 3)
+
+
+@kernels.counted
+def node_keys_cuda(nx, ny, nz, level, end: bool = False):
+    """node_keys by the kernel csrc/morton.cu `node_keys` on CUDA tensors;
+    raises for anything else. One launch in place of some 150 over the
+    taken nodes or their children (1,024-8,192 rows: the launches, not the
+    24 B a row, bound it). Adds one to `node_keys_cuda.launches` a call."""
+    where, dev, n = "node_keys_cuda", nx.device, nx.shape[0]
+    args = _columns(where, torch.int32, dev, n, nx=nx, ny=ny, nz=nz,
+                    level=level)
+    args.append(int(end))
+    return _launch(node_keys_cuda, "simlod_node_keys", n, dev, args, 2)
