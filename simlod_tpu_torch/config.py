@@ -138,8 +138,6 @@ class EngineConfig:
             segment_capacity=min(max(bucket(n // 32), 1 << 16), 1 << 22),
             point_capacity=n + (1 << 20),
             voxel_capacity=max(bucket(n), 1 << 22),
-            max_render_points=4 << 20,
-            max_render_voxels=4 << 20,
         )
         kw.update(overrides)
         cfg = cls(**kw)
@@ -149,7 +147,32 @@ class EngineConfig:
             kw["voxel_capacity"] = max(kw["voxel_capacity"] // 2, 1 << 22)
             kw.update(overrides)
             cfg = cls(**kw)
-        return cfg
+        caps = dict(
+            max_render_points=render_window_cap(cfg.point_capacity, budget),
+            max_render_voxels=render_window_cap(cfg.voxel_capacity, budget))
+        caps.update({k: v for k, v in overrides.items() if k in caps})
+        return dataclasses.replace(cfg, **caps)
+
+
+# the share of the memory budget the block plan of one sample window may
+# take at its cap (EngineConfig.auto)
+RENDER_PLAN_SHARE = 1 / 256
+# plan bytes a window block of 128 rows takes (ragged.plan_chunks: four
+# int32 and a bool)
+PLAN_BLOCK_BYTES = 17
+
+
+def render_window_cap(capacity: int, budget: int) -> int:
+    """The cap of a sample window over a pool of `capacity` rows: the power
+    of two at or above twice the pool, so that a view of every stored
+    sample fits with phase padding (at most 254 rows a segment) as large as
+    the pool, unless the window's plan would take more than
+    RENDER_PLAN_SHARE of the memory budget. Never below the JAX package's
+    fixed 4M. A frame's window is held from its need (Engine._windows):
+    the cap only bounds it."""
+    cap = 1 << (2 * capacity - 1).bit_length()
+    fit = int(budget * RENDER_PLAN_SHARE) // PLAN_BLOCK_BYTES * 128
+    return max(min(cap, 1 << max(fit.bit_length() - 1, 0)), 4 << 20)
 
 
 def _device_memory_bytes(device: torch.device) -> int:

@@ -128,6 +128,19 @@ def plan_blocks_reference(src_off: torch.Tensor, cnt: torch.Tensor,
                                        max=out_len))
 
 
+def window_need(src_off: torch.Tensor, cnt: torch.Tensor,
+                mask: torch.Tensor | None = None,
+                index: torch.Tensor | None = None) -> torch.Tensor:
+    """Rows of window a plan of the selected segments fills (the arguments
+    of plan_blocks but the window), phase padding included: each segment
+    takes the whole 128-row blocks its pool rows touch. A plan whose window
+    holds fewer drops samples (0-d int32)."""
+    sel = _select(cnt, mask, index)
+    blocks = torch.div(src_off + sel + A - 1, A, rounding_mode="floor") \
+        - torch.div(src_off, A, rounding_mode="floor")
+    return A * torch.where(sel > 0, blocks, 0).sum(dtype=torch.int32)
+
+
 MAX_PLANS = 8     # sets of one launch (csrc/frame.cu MAX_PLANS)
 _SCAN = 1024      # segments of a scan tile (csrc/frame.cu SCAN)
 

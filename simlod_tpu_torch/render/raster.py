@@ -32,7 +32,7 @@ from .. import kernels
 from ..config import EngineConfig, Uniforms
 from ..octree.structures import OctreeState
 from ..ops import morton, ragged
-from ..ops.segments import I32_MIN, device_constant
+from ..ops.segments import I32_MIN, device_constant, iota
 
 
 def u32(v: int) -> int:
@@ -160,6 +160,83 @@ def gather_voxel_samples(cfg: EngineConfig, state: OctreeState,
     state_voxel_source)."""
     plan = ragged.plan_blocks(*voxel_spec(cfg, state, emitted, window))
     return materialize(state_voxel_source(state, plan))
+
+
+class VoxelTail(NamedTuple):
+    """The voxel store's tail, the rows [vox_compacted, vox_used) appended
+    since the last compaction, grouped by the node each row belongs to: the
+    inner node at the row's level on the path of its emitting leaf
+    (anc[vox_node, level], the node compaction would resolve it to). The
+    compacted CSR (vox_voff, vox_vcnt) does not reach these rows; a frame
+    draws them through this per-node CSR of its own, so that every stored
+    voxel of a drawn node is drawn, duplicates of a cell included, as the
+    reference's insertVoxels makes each new voxel drawable at once."""
+    k0: torch.Tensor        # [T] i32 rows in node order
+    k1: torch.Tensor
+    k2l: torch.Tensor
+    rgba: torch.Tensor      # [T] i32 (u32 bit pattern)
+    voff: torch.Tensor      # [N] i32 each node's first row in the tail
+    vcnt: torch.Tensor      # [N] i32 and its row count
+
+
+def tail_buffers(state: OctreeState) -> VoxelTail:
+    """Columns of the store's rows and a directory of the node slots for
+    voxel_tail to write a state's tail into: a frame drawn from them reads
+    the same tensors every frame, so a recorded frame replays."""
+    rows, nodes = state.vox_k0.shape[0], state.child_base.shape[0]
+    col = lambda n: torch.zeros(n, dtype=torch.int32, device=state.device)
+    return VoxelTail(col(rows), col(rows), col(rows), col(rows), col(nodes),
+                     col(nodes))
+
+
+def voxel_tail(state: OctreeState, compacted: int, used: int,
+               out: VoxelTail | None = None) -> VoxelTail | None:
+    """The VoxelTail of `state` for its watermarks vox_compacted and
+    vox_used as read by the caller, in tensors of its own or written into
+    `out` (tail_buffers of the state: its columns' rows past the tail keep
+    what they held); None when the tail is empty. A stable sort of the tail
+    rows by node, four gathers of them, and each node's range found by
+    binary search in the sorted nodes: the rows' bytes, whatever the frame
+    draws."""
+    if used <= compacted:
+        return None
+    rows = slice(compacted, used)
+    k2l = state.vox_k2l[rows]
+    node = state.anc[state.vox_node[rows] * (C.MAX_DEPTH + 1) + (k2l & 31)]
+    node, order = torch.sort(node, stable=True)
+    ids = iota(state.child_base.shape[0], state.device)
+    cols = (state.vox_k0, state.vox_k1, state.vox_k2l, state.vox_rgba)
+    if out is None:
+        voff = torch.searchsorted(node, ids, out_int32=True)
+        vcnt = torch.searchsorted(node, ids, right=True, out_int32=True) \
+            - voff
+        return VoxelTail(*(torch.index_select(c[rows], 0, order)
+                           for c in cols), voff, vcnt)
+    n = used - compacted
+    for c, dst in zip(cols, out[:4]):
+        torch.index_select(c[rows], 0, order, out=dst[:n])
+    torch.searchsorted(node, ids, out_int32=True, out=out.voff)
+    torch.searchsorted(node, ids, right=True, out_int32=True, out=out.vcnt)
+    out.vcnt.sub_(out.voff)
+    return out
+
+
+def tail_spec(cfg: EngineConfig, tail: VoxelTail, emitted: torch.Tensor,
+              window: int | None = None) -> tuple:
+    """The ragged.plan_blocks_many spec of a frame's tail voxel samples:
+    emitted nodes' tail ranges in a dense window of (window or
+    max_render_voxels) rounded down to 128 rows (voxel_spec over the
+    tail's CSR, cut to the frame's node window)."""
+    W = ((window or cfg.max_render_voxels) // 128) * 128
+    n = emitted.shape[0]
+    return (tail.voff[:n], tail.vcnt[:n], W, emitted, None)
+
+
+def tail_voxel_source(state: OctreeState, tail: VoxelTail,
+                      plan: ragged.BlockPlan) -> SampleSource:
+    """The voxel samples of a tail_spec plan, over the tail's columns."""
+    return voxel_source(state, plan, tail.k0, tail.k1, tail.k2l, tail.rgba,
+                        plan.count)
 
 
 def materialize(s) -> Samples:

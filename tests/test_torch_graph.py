@@ -431,6 +431,26 @@ def test_cpu_engine_held_windows_draw_the_jax_frames(cloud_file):
         teng.stream.stop()
 
 
+def test_the_frame_a_stream_ends_on_is_drawn_eagerly(cloud_file):
+    """The render-only frame in which Engine.frame finds the stream drained
+    is drawn once (a compaction just moved the voxel directory): no graph is
+    recorded for it. The frames after it, with a still octree, are."""
+    eng = Engine(EngineConfig(**KW), Settings(min_node_size=8.0,
+                                              frame_budget_ms=0.0),
+                 device="cpu")
+    eng.graphs = _cpu_graphs()
+    eng.open([cloud_file], chunk_steps=1)
+    while not eng.last_batch_finished:
+        img, _ = eng.frame(W, H)
+    assert eng.graphs.captures == 0 and eng.t_render.count == 1
+    want, _ = _eager(eng)
+    assert torch.equal(img, want)
+    eng.frame(W, H)
+    eng.frame(W, H)
+    assert (eng.graphs.captures, eng.graphs.replays) == (1, 1)
+    eng.stream.stop()
+
+
 # --- on the card ---
 
 CARD_CFG = EngineConfig(**{**KW, "max_render_points": 1 << 20,
