@@ -13,8 +13,9 @@ as one JSON line; the whole record goes to --out:
   - `off_cost`: a span's cost with no profiler running (ns), and with one;
     the spans a load closes;
   - `loads`: per untraced load, each phase's seconds and share of the load
-    (Engine.open + load_all), the device reads per site, and how much of
-    the load's seconds the spans cover;
+    (Engine.open + load_all), the device reads per site, how much of the
+    load's seconds the spans cover, the stream's first item
+    (`first_item_s`) and its `stats()`;
   - `audit`: one load under torch.cuda.set_sync_debug_mode("warn"): every
     synchronizing call, and whether a `sync.<site>` span holds it; on the
     card `audit_cold` audits the warm-up load too (the one whose build
@@ -86,6 +87,8 @@ def phases(d: dict, loop_s: float) -> dict:
         out["step_host_ms"] = 1e3 * (s["seconds"] - s["sync_s"]) / s["count"]
     if "stream.stage" in d:
         out["stage_s"] = d["stream.stage"]["seconds"]
+    if "stream.first_item" in d:
+        out["first_item_s"] = d["stream.first_item"]["seconds"]
     out["load_all_children_pct"] = 100 * sum(
         d[n]["seconds"] for n in LOAD_ALL_CHILDREN if n in d) / la["seconds"]
     out["open_load_all_pct_of_loop"] = 100 * load_s / loop_s
@@ -251,6 +254,7 @@ def main(argv=None) -> int:
             r = loop.one()
             rows.append(phases(trace.since(snap), r["seconds"]))
             rows[-1]["host_syncs"] = r["host_syncs"]
+            rows[-1]["stream"] = loop.eng.stream.stats()
         out["loads"] = rows
         out["off_cost"]["spans_per_load"] = statistics.median(
             x["spans"] for x in rows)
@@ -275,7 +279,9 @@ def main(argv=None) -> int:
     med = lambda key: statistics.median(x[key] for x in rows)
     brief["median"] = {k: med(k) for k in (
         "loop_s", "load_s", "sync_pct", "sync_count", "step_host_ms",
-        "load_all_children_pct", "open_load_all_pct_of_loop") if k in rows[0]}
+        "stage_s", "first_item_s", "load_all_children_pct",
+        "open_load_all_pct_of_loop") if k in rows[0]}
+    brief["staged_rows"] = [x["stream"].get("staged_rows") for x in rows]
     brief["min_coverage"] = dict(
         load_all_children_pct=min(x["load_all_children_pct"] for x in rows),
         open_load_all_pct_of_loop=min(x["open_load_all_pct_of_loop"]

@@ -188,8 +188,9 @@ def test_a_load_is_traced(monkeypatch, cloud, bulk):
     assert parts <= d["engine.open"]["seconds"]
     st = eng.stream.stats()
     assert set(st) == {"points_loaded", "bytes_read", "laz_chunks",
-                       "t_decode", "stage_s", "wait_s"}
+                       "staged_rows", "t_decode", "stage_s", "wait_s"}
     assert st["points_loaded"] == 60_000 and st["laz_chunks"] == 0
+    assert st["staged_rows"] == 0
     assert st["stage_s"] == pytest.approx(d["stream.stage"]["seconds"],
                                           abs=1e-3)
     assert st["wait_s"] == pytest.approx(d["stream.wait"]["seconds"],
