@@ -19,6 +19,13 @@ brick-granular residency:
     frames by depth-min (render.composite_frames), which equals a joint render
     of all bricks (the reference's u64 atomicMin blend, render.cu:95-99);
   - a closeup pages one brick's point pool back in (`page_in`).
+
+Spans (utils/trace): `ooc.open` (the tile scan and the union box), one
+`ooc.brick` a brick (its engine open, load, forced compaction and eviction)
+holding `ooc.compact` and `ooc.evict` (the eviction's read,
+`sync.outofcore.evict`, and the copies, done once the span closes).
+Counters since the last `open`: `bricks_built` and `evicted_bytes` (the
+bytes of the used prefixes copied to the host).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from .io.streaming import scan_paths
 from .octree.structures import OctreeState, state_from_numpy
 from .render import camera as camera_mod
 from .render.render import composite_frames, render_components
+from .utils import trace
 
 # node columns copied into a brick's resident render state
 _NODE_COLS = ("child_base", "parent", "level", "nx", "ny", "nz", "counter",
@@ -121,19 +129,25 @@ class OutOfCoreEngine:
         self._paged_in: int | None = None
         self.camera = camera_mod.Camera()
         self.orbit = camera_mod.OrbitControls()
+        self.bricks_built = 0
+        self.evicted_bytes = 0
 
     # --- lifecycle ---
     def open(self, paths) -> list[str]:
         """Scan bricks (one per file) and compute the global union box."""
-        entries = scan_paths(paths)
-        if not entries:
-            raise FileNotFoundError(f"no point cloud files under {paths!r}")
-        self.global_min = np.min([e.box_min for e in entries], axis=0)
-        self.global_max = np.max([e.box_max for e in entries], axis=0)
+        with trace.span("ooc.open"):
+            entries = scan_paths(paths)
+            if not entries:
+                raise FileNotFoundError(
+                    f"no point cloud files under {paths!r}")
+            self.global_min = np.min([e.box_min for e in entries], axis=0)
+            self.global_max = np.max([e.box_max for e in entries], axis=0)
         self.brick_paths = [e.path for e in entries]
         self.bricks = []
         self._resident = {}
         self._paged_in = None
+        self.bricks_built = 0
+        self.evicted_bytes = 0
         if self.settings.auto_focus_on_load:
             self.orbit.focus_box(np.zeros(3), self._extent())
             self.camera.world = self.orbit.world()
@@ -151,34 +165,40 @@ class OutOfCoreEngine:
         engine's open resets the octree to the world box before it attaches
         the brick's stream (a reset drops the engine's current stream)."""
         eng = self.engine
-        stream = eng.open([path], box_override=(self.global_min,
-                                                self.global_max))
-        eng.load_all()
-        stream.stop()
-        eng._maybe_compact(force=True)
-        brick = self._evict(path, eng.state)
+        with trace.span("ooc.brick"):
+            stream = eng.open([path], box_override=(self.global_min,
+                                                    self.global_max))
+            eng.load_all()
+            stream.stop()
+            with trace.span("ooc.compact"):
+                eng._maybe_compact(force=True)
+            brick = self._evict(path, eng.state)
         e = stream.entries[0]
         brick.box_min = (e.box_min - self.global_min).astype(np.float32)
         brick.box_max = (e.box_max - self.global_min).astype(np.float32)
         self.bricks.append(brick)
+        self.bricks_built += 1
         return brick
 
     def _evict(self, path: str, s: OctreeState) -> Brick:
         """Copy the brick's used prefixes to the host; the device state is
         replaced when the next brick resets the engine."""
-        nn, ns, vu, pu, processed, dropped = self.engine._read(
-            "outofcore.evict",
-            [s.num_nodes, s.num_segments, s.vox_used, s.pool_used,
-             s.num_points_processed, s.num_points_dropped])
-        pull = lambda col, n: getattr(s, col)[:n].cpu().numpy().copy()
-        return Brick(
-            path=path,
-            nodes={c: pull(c, nn) for c in _NODE_COLS},
-            voxels={c: pull(c, vu) for c in _VOX_COLS},
-            points={c: pull(c, pu) for c in _PT_COLS},
-            segs={c: pull(c, ns) for c in _SEG_COLS},
-            num_nodes=nn, num_segments=ns, vox_used=vu, pool_used=pu,
-            num_points=processed - dropped)
+        with trace.span("ooc.evict"):
+            nn, ns, vu, pu, processed, dropped = self.engine._read(
+                "outofcore.evict",
+                [s.num_nodes, s.num_segments, s.vox_used, s.pool_used,
+                 s.num_points_processed, s.num_points_dropped])
+            pull = lambda col, n: getattr(s, col)[:n].cpu().numpy().copy()
+            brick = Brick(
+                path=path,
+                nodes={c: pull(c, nn) for c in _NODE_COLS},
+                voxels={c: pull(c, vu) for c in _VOX_COLS},
+                points={c: pull(c, pu) for c in _PT_COLS},
+                segs={c: pull(c, ns) for c in _SEG_COLS},
+                num_nodes=nn, num_segments=ns, vox_used=vu, pool_used=pu,
+                num_points=processed - dropped)
+        self.evicted_bytes += brick.host_bytes
+        return brick
 
     # --- resident render states ---
     def _render_cfg(self) -> EngineConfig:
